@@ -6,15 +6,18 @@ Hopper, one slice at a time. It imports ``torch`` and ``numpy`` and nothing
 of JAX or of the JAX package. Modules keep the JAX package's names so that
 a reader finds the counterpart.
 
-Carried so far -- the forward wavefront render:
+Carried so far -- the forward wavefront render, the tiled engine and
+the training path (``fit`` with the planar and tiled AD engines):
   Scenes:      Scene, simple_scene_cuda, simple_scene_cpu, huge_scene,
                validate_scene, scene_from_numpy
   Cameras:     Camera, make_camera, reference_cuda_camera,
                reference_cpu_camera, camera_from_numpy
-  Rendering:   render_wavefront, RenderConfig, TraceOptions + presets,
-               key_words (the base key of a seed)
+  Rendering:   render_wavefront, render, render_pixels, RenderConfig,
+               TraceOptions + presets, key_words (the base key of a seed)
+  Optimization: optim.fit, optim.make_train_step, optim.render_loss,
+               optim.render_pixels_vjp, optim.save/load_checkpoint
   Postprocess: to_u8, write_ppm, write_png
-  CLI:         python -m raytracinginoneweekend_tpu_torch {render,bench}
+  CLI:         python -m raytracinginoneweekend_tpu_torch {render,bench,fit}
 
 Every entry point takes ``device=None``: that means the CUDA card, and
 raises when there is none. Ask for ``device="cpu"`` explicitly (the tests
@@ -36,3 +39,5 @@ from .models.scene import (Scene, huge_scene, scene_from_numpy,  # noqa: F401
 from .ops.postprocess import to_u8  # noqa: F401
 from .ops.threefry import key_words  # noqa: F401
 from .ops.wavefront import render_wavefront  # noqa: F401
+from .render import render, render_pixels  # noqa: F401
+from . import optim  # noqa: F401

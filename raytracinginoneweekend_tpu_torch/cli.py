@@ -1,22 +1,33 @@
 """Command-line front end: the app layer.
 
-Counterpart of ``raytracinginoneweekend_tpu/cli.py``, with the two
-subcommands the forward slice carries:
+Counterpart of ``raytracinginoneweekend_tpu/cli.py``, with the
+subcommands the port carries:
 
   render  -- render a scene to PPM/PNG (the reference's one behavior)
   bench   -- rays/s measurement on any config
+  fit     -- inverse-rendering demo (perturb scene params, recover them)
 
 ``--device`` chooses where to run; absent, it is the CUDA card and the
 command fails when there is none (``--device cpu`` runs the plain PyTorch
-versions of the kernels). ``fit``, ``serve``, ``--via``, ``--adaptive``
-and the engines other than the single-pool wavefront come with later
-slices of the port (ROADMAP.md).
+versions of the kernels). ``--engine`` is the single-pool wavefront
+(``auto``) or the tiled engine. ``--intersect`` chooses the tiled
+engine's closest hit: ``pallas`` (the JAX package's name for the
+hand-written kernel), ``jnp`` (the plain version, what every preset
+names), or ``auto``, the default: the kernel on a CUDA device, the
+preset's own value elsewhere. That default is the one place where the
+same ``--compat`` gives other TraceOptions than the JAX package's CLI,
+which never sets the field (ROADMAP.md, Queue 3). ``serve``, ``--via``, ``--adaptive``, the other engines, the
+regenerative AD pool and the gradient surrogates come with later slices of
+the port (ROADMAP.md).
 
 Examples:
   python -m raytracinginoneweekend_tpu_torch render --scene simple-cuda \
       --width 1920 --height 1080 --spp 48 --out image.png
   python -m raytracinginoneweekend_tpu_torch render --scene huge \
       --width 1200 --height 800 --spp 100 --depth 50 --out cover.png
+  python -m raytracinginoneweekend_tpu_torch fit --scene simple-cuda \
+      --width 200 --height 112 --params albedo,centers --steps 20 \
+      --checkpoint fit.npz
 """
 
 from __future__ import annotations
@@ -53,7 +64,12 @@ def _build_camera(name: str, width: int, height: int, device):
 
 
 def _options(compat: str, rr_terminate: bool = False,
-             sampling: str | None = None):
+             sampling: str | None = None, intersect: str = "auto",
+             device=None):
+    """The preset's TraceOptions with the CLI's overrides. ``intersect``:
+    "jnp" or "pallas" is taken as given; "auto" is the hand-written kernel
+    ("pallas") on a CUDA ``device`` and the preset's value elsewhere. The
+    wavefront engine ignores the knob."""
     from . import config
 
     opts = {
@@ -65,7 +81,10 @@ def _options(compat: str, rr_terminate: bool = False,
         opts = dataclasses.replace(opts, rr_terminate=True)
     if sampling is not None:
         opts = dataclasses.replace(opts, sampling=sampling)
-    return opts
+    if intersect == "auto":
+        on_card = device is not None and device.type == "cuda"
+        intersect = "pallas" if on_card else opts.intersect
+    return dataclasses.replace(opts, intersect=intersect)
 
 
 def _add_render_flags(p: argparse.ArgumentParser):
@@ -84,9 +103,17 @@ def _add_render_flags(p: argparse.ArgumentParser):
     p.add_argument("--depth", type=int, default=32)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--engine", default="auto", choices=ENGINES,
-                   help="auto = the single-pool wavefront engine, the only "
-                        "engine ported so far; the others are refused")
+                   help="auto = the single-pool wavefront engine; tiled = "
+                        "the (N, 3) autograd-capable engine; the others "
+                        "are not ported yet and are refused")
     p.add_argument("--pool-size", type=int, default=1 << 15)
+    p.add_argument("--intersect", default="auto",
+                   choices=["auto", "jnp", "pallas"],
+                   help="the tiled engine's closest hit "
+                        "(TraceOptions.intersect): pallas = the "
+                        "hand-written kernel, jnp = the plain version, "
+                        "auto = the kernel on a CUDA device and the "
+                        "preset's value elsewhere")
     p.add_argument("--sampling", default=None,
                    choices=["iid", "stratified"],
                    help="pixel-jitter sampling (TraceOptions.sampling; "
@@ -113,20 +140,28 @@ def _render_image(args):
     from .ops.wavefront import render_wavefront
     from .utils.device import resolve_device
 
-    if args.engine not in ("auto", "wavefront"):
+    if args.engine not in ("auto", "wavefront", "tiled"):
         raise NotImplementedError(
             f"--engine {args.engine} is not ported yet (ROADMAP.md, "
-            "Queue 1: the tiled AD engine, multi-GPU and the ablation "
-            "engines)")
+            "Queue 1: multi-GPU and the ablation engines)")
     device = resolve_device(args.device)
     scene = _build_scene(args.scene, args.seed, device)
     camera_name = args.camera or ("cuda" if args.scene == "simple-cuda"
                                   else "cpu")
     cam = _build_camera(camera_name, args.width, args.height, device)
-    options = _options(args.compat, args.rr_terminate, args.sampling)
+    options = _options(args.compat, args.rr_terminate, args.sampling,
+                       args.intersect, device)
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        max_depth=args.depth, camera_mode=args.mode,
                        options=options)
+    if args.engine == "tiled":
+        from .render import render
+
+        if args.stats:
+            raise ValueError("--stats reports the wavefront engine's "
+                             "counters; the tiled engine has none")
+        return render(scene, cam, cfg, key_words(args.seed),
+                      device=device), cfg
     kw = dict(width=args.width, height=args.height, spp=args.spp,
               max_depth=args.depth, camera_mode=args.mode,
               options=options, pool_size=args.pool_size, device=device)
@@ -188,6 +223,88 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def _fit_impl(args, log=print) -> dict:
+    """The fit pipeline (perturb -> recover); returns a result dict.
+
+    The target is rendered by the tiled engine (``render.render``); the
+    parameters named by ``--params`` are perturbed with normal noise drawn
+    from a ``torch.Generator`` seeded with ``--seed + 1`` (not the JAX
+    package's draws: see optim/inverse.py) and recovered by ``optim.fit``.
+    """
+    import torch
+
+    from .config import RenderConfig
+    from .ops.threefry import key_words
+    from .optim import (fit, load_checkpoint, params_from_scene,
+                        save_checkpoint)
+    from .render import render
+    from .utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    scene = _build_scene(args.scene, args.seed, device)
+    camera_name = args.camera or ("cuda" if args.scene == "simple-cuda"
+                                  else "cpu")
+    cam = _build_camera(camera_name, args.width, args.height, device)
+    cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
+                       max_depth=args.depth, camera_mode=args.mode,
+                       options=_options(args.compat, args.rr_terminate,
+                                        args.sampling, args.intersect,
+                                        device))
+    log("rendering target...")
+    target = render(scene, cam, cfg, key_words(args.seed), device=device)
+
+    # Perturb the optimizable leaves, then recover them.
+    gen = torch.Generator(device="cpu").manual_seed(args.seed + 1)
+    which = tuple(args.params.split(","))
+    perturbed = scene
+    for name in which:
+        leaf = getattr(scene, name)
+        noise = args.perturb * torch.randn(leaf.shape, generator=gen,
+                                           dtype=torch.float32)
+        perturbed = perturbed._replace(**{name: leaf + noise.to(device)})
+
+    init = {}
+    if args.resume:
+        p0, o0, step0 = load_checkpoint(args.resume,
+                                        params_from_scene(perturbed, which))
+        init = dict(init_params=p0, init_opt_state=o0, start_step=step0)
+        log(f"resumed from {args.resume} at step {step0}")
+
+    ckpt_path = args.checkpoint
+
+    def callback(i, params, optimizer, loss):
+        if (i + 1) % args.log_every == 0:
+            log(f"step {i + 1}: loss {loss:.6f}")
+        if ckpt_path and (i + 1) % args.checkpoint_every == 0:
+            save_checkpoint(ckpt_path, params, optimizer, i + 1)
+
+    _, params, optimizer, losses = fit(
+        perturbed, cam, target, cfg, which=which, steps=args.steps,
+        learning_rate=args.lr, batch_pixels=args.batch_pixels,
+        spp=args.fit_spp, callback=callback,
+        boundary_samples=args.boundary_samples,
+        secondary_samples=args.secondary_samples,
+        secondary_vertex_depths=args.secondary_vertex_depths,
+        rr_grad=args.rr_grad, rr_grad_arms=args.rr_grad_arms,
+        engine=args.ad_engine, device=device, **init)
+    if ckpt_path:
+        save_checkpoint(ckpt_path, params, optimizer,
+                        init.get("start_step", 0) + args.steps)
+    truth = params_from_scene(scene, which)
+    errors = {name: float((params[name].detach() - truth[name].detach()).abs().max())
+              for name in which}
+    return {"errors": errors, "loss_start": losses[0],
+            "loss_end": losses[-1], "steps": len(losses)}
+
+
+def cmd_fit(args) -> int:
+    res = _fit_impl(args, log=lambda s: print(s, flush=True))
+    for name, err in res["errors"].items():
+        print(f"{name}: max abs err vs truth = {err:.5f}")
+    print(f"loss: {res['loss_start']:.6f} -> {res['loss_end']:.6f}")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="raytracinginoneweekend_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -203,6 +320,40 @@ def main(argv=None) -> int:
     _add_render_flags(p)
     p.add_argument("--iters", type=int, default=2)
     p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser("fit", help="inverse rendering demo")
+    _add_render_flags(p)
+    p.add_argument("--params", default="albedo,centers",
+                   help="comma list of centers,radii,albedo,fuzz,ior")
+    p.add_argument("--perturb", type=float, default=0.1)
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--batch-pixels", type=int, default=4096)
+    p.add_argument("--fit-spp", type=int, default=4)
+    p.add_argument("--boundary-samples", type=int, default=0,
+                   help="edge samples/sphere for silhouette gradients "
+                        "(not ported yet: only 0 is accepted)")
+    p.add_argument("--secondary-samples", type=int, default=0,
+                   help="silhouette angles/candidate for the one-bounce "
+                        "boundary term (not ported yet: only 0 is accepted)")
+    p.add_argument("--secondary-vertex-depths", type=int, default=1)
+    p.add_argument("--ad-engine", default="auto",
+                   choices=["auto", "wavefront", "planar", "tiled"],
+                   help="reverse-mode engine: 'auto' = by depth (planar up "
+                        "to depth 32, or 28 with --rr-terminate; above it "
+                        "the regenerative pool), 'planar' = fixed-depth "
+                        "(R,128) planes with the closest-hit kernel, "
+                        "'tiled' = the (N,3) engine, 'wavefront' = the "
+                        "regenerative pool (not ported yet)")
+    p.add_argument("--rr-grad", action="store_true",
+                   help="the dielectric Russian-roulette branch-flip "
+                        "gradient term (not ported yet: refused)")
+    p.add_argument("--rr-grad-arms", type=int, default=2)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=25)
+    p.add_argument("--resume", default=None)
+    p.set_defaults(fn=cmd_fit)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -9,7 +9,7 @@ so a configuration written for one package reads the same in the other.
 reproducible for validation via the presets below.
 
 ``TraceOptions`` accepts every value the JAX package accepts. What the
-port's engine does not carry yet raises ``NotImplementedError`` at the
+port's engines do not carry yet raises ``NotImplementedError`` at the
 engine's entry (``ops/wavefront.py``), never here.
 """
 
@@ -22,12 +22,15 @@ import dataclasses
 class TraceOptions:
     """Semantics switches for the integrator (all static).
 
-    Carried by the port's wavefront engine today: ``t_min``,
-    ``scatter_sample``, ``sky``, ``refract``, ``sampling``, the ``rr_*``
-    knobs, and the defaults ``mega="fused"``, ``hit_kernel="sublane"``,
-    ``resolve="onehot"``, ``ownership="strided"``. The other values of
-    those four, and the tiled engine's ``sphere_block``/``intersect``/
-    ``gather``, wait for later slices of the port (ROADMAP.md).
+    Carried by every engine of the port: ``t_min``, ``scatter_sample``,
+    ``sky``, ``refract``, ``sampling`` and the ``rr_*`` knobs. The
+    wavefront engine carries the defaults ``mega="fused"``,
+    ``hit_kernel="sublane"``, ``resolve="onehot"``,
+    ``ownership="strided"``; the other values of those four wait for later
+    slices of the port (ROADMAP.md). The tiled engine (render.py,
+    ops/integrate.py) carries ``sphere_block``, ``intersect`` and
+    ``gather``; the wavefront and planar engines ignore those three, as
+    the JAX package's do.
     """
 
     # Minimum hit distance epsilon (raytracer.hxx:98; cuda_impl.cu:176).
@@ -42,8 +45,13 @@ class TraceOptions:
     # Refraction formula: "physical" (standard Snell) or "reference"
     # (math.hxx:304-308 scalar-broadcast expression).
     refract: str = "physical"
-    # Tiled-engine knobs (not carried by the port yet; kept so that the
-    # two packages' options stay interchangeable).
+    # Tiled-engine knobs. sphere_block: spheres per streamed block of the
+    # plain closest hit. intersect: "jnp" = the plain PyTorch closest hit,
+    # "pallas" = the hand-written kernel (csrc/intersect.cu on CUDA
+    # tensors); the names are the JAX package's, kept so that the two
+    # packages' options stay interchangeable. gather: "onehot" and "take"
+    # name one exact gather of the winner's parameters; the port indexes
+    # the table for both.
     sphere_block: int = 512
     intersect: str = "jnp"
     gather: str = "onehot"
@@ -147,6 +155,6 @@ class RenderConfig:
     max_depth: int = 32
     camera_mode: str = "thinlens"  # see models/camera.py
     options: TraceOptions = DEFAULT
-    # Upper bound on rays traced per device program invocation (a knob of
-    # the tiled engine, which the port does not carry yet).
+    # Upper bound on rays traced per wave of the tiled engine
+    # (render.render chunks the image by it).
     rays_per_chunk: int = 1 << 20

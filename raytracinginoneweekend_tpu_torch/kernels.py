@@ -15,7 +15,8 @@ versions whose products and sums are rounded separately.
 
 Each C entry returns ``cudaGetLastError()`` after its launch; ``check``
 raises when that is not 0. The wrappers (ops/cuda_segment.py,
-ops/cuda_fused.py) own the launch counters; ``LAUNCHES`` here is the one
+ops/cuda_fused.py, ops/cuda_intersect.py) own the launch counters;
+``LAUNCHES`` here is the one
 table they count into, so a caller can zero and read all of them.
 """
 
@@ -47,10 +48,14 @@ ENTRIES = {
     # | camera | n_lanes n_spheres | stream
     "rtw_shade_regen": ("shade_regen.cu",
                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    # origin direction | table4 | t idx hit | n_rays n_spheres t_min
+    # | stream
+    "rtw_closest_hit_n3": ("intersect.cu",
+                           [_P] * 2 + [_P] + [_P] * 3 + [_I, _I, _F, _P]),
 }
 
 # Launch counts, one per kernel; each wrapper adds one where it launches.
-LAUNCHES = {"closest_hit": 0, "shade_regen": 0}
+LAUNCHES = {"closest_hit": 0, "shade_regen": 0, "intersect": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict = {}

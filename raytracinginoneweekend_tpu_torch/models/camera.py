@@ -1,8 +1,9 @@
 """Thin-lens camera as a small container of tensors.
 
-The port's copy of ``raytracinginoneweekend_tpu/models/camera.py``
-(``camera_ray``, the scalar ray generator, comes with the tiled engine;
-the wavefront path generates rays on planes, ops/planar.camera_rays).
+The port's copy of ``raytracinginoneweekend_tpu/models/camera.py``.
+``camera_ray`` is the tiled engine's ray generator, written batched over
+(N,) film coordinates; the planar engines generate rays on planes
+(ops/planar.camera_rays).
 Re-expression of ``raytracer::camera`` (camera.hxx:19-77): the constructor
 math is identical (basis from position/lookat/up, FOV half-angle tangent,
 focus-distance-scaled film rectangle, camera.hxx:31-43), in float32.
@@ -97,6 +98,47 @@ def make_camera(position, lookat, up, aspect, vfov_degrees, aperture,
         basis_v=v,
         lens_radius=torch.tensor(aperture, dtype=f32) / 2.0,
     ).to(device)
+
+
+def camera_ray(cam: Camera, u, v, key_words, mode: str = "thinlens",
+               lens_uv=None):
+    """Generate primary rays for (N,) film coordinates u, v.
+
+    Returns (origin (N, 3), direction (N, 3)). ``key_words`` is the rays'
+    RAY KEY, a pair of (N,) key-word tensors (ops/rng.ray_key); lens draws
+    use its TAG_LENS counter blocks ("cuda" and "pinhole" draw nothing).
+
+    lens_uv: optional pre-remapped (u0, u1) pair for the thinlens disk
+    sample (the stratified-lens path, rng.stratify_lens_uv); None draws
+    the iid pair from the ray key.
+    """
+    from ..ops import rng
+
+    u, v = u[:, None], v[:, None]
+    film = cam.lower_left + cam.horizontal * u + cam.vertical * (1.0 - v)
+    origin = cam.origin.expand(film.shape)
+    if mode == "cuda":
+        # camera.hxx:48-49 + :56 (no -origin, quirk Q11).
+        return origin, film
+    if mode == "cpu":
+        # camera.hxx:51-56: unit-SPHERE sample, world-axis offset scaled by
+        # screen (u,v); direction keeps quirk Q11 (no -origin).
+        rd = rng.lens_sphere(key_words) * cam.lens_radius
+        offset = torch.cat([u * rd[:, 0:1], v * rd[:, 1:2],
+                            torch.zeros_like(u)], dim=1)
+        return cam.origin + offset, film - offset
+    if mode == "thinlens":
+        # True thin-lens: disk sample in the lens basis; correct direction.
+        if lens_uv is not None:
+            rd = torch.stack(rng.disk_from_uv(*lens_uv), dim=-1)
+        else:
+            rd = rng.lens_disk(key_words)
+        rd = rd * cam.lens_radius
+        offset = cam.basis_u * rd[:, 0:1] + cam.basis_v * rd[:, 1:2]
+        return cam.origin + offset, film - cam.origin - offset
+    if mode == "pinhole":
+        return origin, film - cam.origin
+    raise ValueError(f"unknown camera mode: {mode!r}")
 
 
 def reference_cuda_camera(width: int, height: int, device=None) -> Camera:

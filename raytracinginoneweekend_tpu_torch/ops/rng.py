@@ -1,10 +1,17 @@
 """Counter-based RNG discipline shared by every engine of the renderer.
 
-The port's copy of ``raytracinginoneweekend_tpu/ops/rng.py`` (the planar
-half: the key-array API -- ``ray_key``, ``jitter_uv``, ``lens_disk``,
-``strat0_scatter`` -- comes with the tiled engine). Every random draw is a
-pure function of ``(base_key, pixel_id, sample_id, tag, word)``, which
-gives determinism at a fixed key and invariance to pool size and device.
+The port's copy of ``raytracinginoneweekend_tpu/ops/rng.py``. Every
+random draw is a pure function of ``(base_key, pixel_id, sample_id, tag,
+word)``, which gives determinism at a fixed key and invariance to pool
+size and device.
+
+Two faces over the same threefry blocks: the planar engines draw on
+(R, 128) key-word planes (ops/planar.py); the tiled engine uses the
+KEY-ARRAY API at the end of this module (``ray_key``, ``jitter_uv``,
+``lens_disk``, ``lens_sphere``, ``bounce_draws``, ``strat0_scatter``).
+Where the JAX package ``vmap``s scalar functions over a key array, these
+are written batched: a ray key is the pair ``(k0, k1)`` of ``(N,)``
+key-word tensors, and the words are the planar half's bit for bit.
 
 Draw-order contract v3 (identical in both packages):
   ray_key  = fold_in(fold_in(base, pixel_id), sample_id)
@@ -63,7 +70,8 @@ def nan_min(a: torch.Tensor, b) -> torch.Tensor:
 
 
 def rr_terminate_update(k0, k1, depth, ax, ay, az, keep, *, rr_start: int,
-                        rr_qmin: float, rr_scale: float):
+                        rr_qmin: float, rr_scale: float,
+                        rr_qcap: float = 1.0, stop_grad: bool = True):
     """Shared Russian-roulette path-termination update -> (ax, ay, az, keep).
 
     THE one definition of the rr_terminate contract (TraceOptions.rr_*):
@@ -72,13 +80,21 @@ def rr_terminate_update(k0, k1, depth, ax, ay, az, keep, *, rr_start: int,
     q = clip(rr_scale * max-channel(attenuation), rr_qmin, 1); survivors
     boost attenuation by 1/q, casualties die like absorb.
 
-    k0/k1: per-ray key-word planes; depth: completed-bounce count plane
-    (i32); keep: the continuation mask BEFORE rr.
+    k0/k1: per-ray key-word planes; depth: completed-bounce count (an
+    i32 plane, or a Python int for the fixed-depth AD engines); keep: the
+    continuation mask BEFORE rr.
+    rr_qcap: survival ceiling (< 1 forces geometric drain even on bright
+    paths; probe traces only -- the engines keep 1.0).
+    stop_grad: hold q constant under autograd, so the weighted estimator's
+    gradient is RR applied to the gradient integrand; a differentiable q
+    would add spurious d(1/q)/dtheta terms. Values are the same either way.
     """
     tag = TAG_BOUNCE + tf.u32(depth)
     u_rr, _ = tf.draw_uniform2(k0, k1, tag, 2)
     q = nan_min(nan_max(_f32(rr_scale) * nan_max(ax, nan_max(ay, az)),
-                        _f32(rr_qmin)), 1.0)
+                        _f32(rr_qmin)), _f32(rr_qcap))
+    if stop_grad:
+        q = q.detach()
     consider = keep & (depth + 1 >= rr_start)
     surv = consider & (u_rr < q)
     boost = torch.where(surv, 1.0 / q, torch.ones_like(q))
@@ -160,3 +176,74 @@ def disk_from_uv(u0, u1):
     theta = TWO_PI * u0
     r = torch.sqrt(u1)
     return torch.cos(theta) * r, torch.sin(theta) * r
+
+
+# ---------------------------------------------------------------------------
+# Key-array API (the tiled engine): a ray key is (k0, k1), two (N,) tensors
+# ---------------------------------------------------------------------------
+
+def ray_key(base_words, pixel_id, sample_id):
+    """Per-(pixel, sample) key words: fold the base key by pixel id, then
+    by sample id. base_words: the ``(k0, k1)`` base-key words (Python
+    ints); pixel_id/sample_id: integer tensors (or ints)."""
+    k0, k1 = tf.fold_in_words(*base_words, pixel_id)
+    return tf.fold_in_words(k0, k1, sample_id)
+
+
+def jitter_uv(rkey):
+    """Sub-pixel jitter in [0,1)^2 -> (ju, jv)
+    (main.cxx:199-200; cuda_impl.cu:370-371)."""
+    return tf.draw_uniform2(*rkey, TAG_JITTER, 0)
+
+
+def lens_disk(rkey):
+    """Thin-lens defocus sample: uniform point in the unit disk, (N, 2)."""
+    u0, u1 = tf.draw_uniform2(*rkey, TAG_LENS, 0)
+    return torch.stack(disk_from_uv(u0, u1), dim=-1)
+
+
+def lens_sphere(rkey):
+    """CPU-mode (quirk Q2) defocus sample: uniform point in the unit
+    ball, (N, 3): a uniform unit direction scaled by U^(1/3) -- the
+    reference's rejection sampler (raytracer.hxx:32-43) without the loop.
+    """
+    u0, u1 = tf.draw_uniform2(*rkey, TAG_LENS, 0)
+    u2, _ = tf.draw_uniform2(*rkey, TAG_LENS, 1)
+    vec = torch.stack(unit_from_uv(u0, u1), dim=-1)
+    return vec * torch.pow(u2, THIRD)[..., None]
+
+
+def bounce_draws(rkey, bounce, sample: str):
+    """All per-bounce randomness: (scatter vec (N, 3), rr uniform (N,)).
+
+    sample: "unit" (normalized direction, CUDA semantics) or "ball"
+    (unnormalized point in the unit sphere, CPU semantics). Both cost two
+    threefry blocks; the ball variant spends u2 on the radius.
+    """
+    tag = TAG_BOUNCE + tf.u32(bounce)
+    u0, u1 = tf.draw_uniform2(*rkey, tag, 0)
+    u2, u3 = tf.draw_uniform2(*rkey, tag, 1)
+    vec = torch.stack(unit_from_uv(u0, u1), dim=-1)
+    if sample != "unit":
+        vec = vec * torch.pow(u2, THIRD)[..., None]
+    return vec, u3
+
+
+def strat0_scatter(rkey, pid, sid, base_words, spp: int, sample: str):
+    """Stratified FIRST-BOUNCE scatter vector, key-array form -> (N, 3).
+
+    The tiled engine's counterpart of planar.strat0_scatter_planes (the
+    same fold chain, stratify_lens_uv and polar map, so the same values):
+    the bounce-0 (u0, u1) pair remapped through the rotated stratified /
+    van-der-Corput scheme with per-pixel rotations at the unconsumed
+    ((pid, 0), TAG_BOUNCE + 0, j=3) counter; ball radius u2 stays iid.
+    """
+    zkey = ray_key(base_words, pid, 0)
+    ru_, rv_ = tf.draw_uniform2(*zkey, TAG_BOUNCE, 3)
+    u0, _ = tf.draw_uniform2(*rkey, TAG_BOUNCE, 0)
+    su, sv = stratify_lens_uv(u0, ru_, rv_, sid, spp)
+    vec = torch.stack(unit_from_uv(su, sv), dim=-1)
+    if sample != "unit":
+        u2, _ = tf.draw_uniform2(*rkey, TAG_BOUNCE, 1)
+        vec = vec * torch.pow(u2, THIRD)[..., None]
+    return vec

@@ -1,0 +1,419 @@
+"""Differentiable inverse rendering.
+
+Counterpart of ``raytracinginoneweekend_tpu/optim/inverse.py``. Pipeline:
+pick the differentiable subset of scene leaves (centers, radii, albedo,
+fuzz, ior), render a random pixel minibatch with a reverse-mode engine, L2
+against the target pixels, Adam update.
+
+Monte-Carlo gradient discipline: each step re-renders the *same* pixels
+with the *same* keys as the target comparison, so the stochastic estimator
+is consistent (the loss is exactly differentiable at fixed RNG; sphere
+silhouettes are discontinuous only on a measure-zero set).
+
+PyTorch's idiom where it differs from the JAX package's:
+  * parameters are a ``{name: tensor}`` dict of leaf tensors with
+    ``requires_grad``; a ``torch.optim`` optimiser is bound to them, holds
+    its own state and updates the tensors in place, so a train step
+    returns the loss only;
+  * the optimiser is ``torch.optim.Adam`` with optax's constants
+    (b1 0.9, b2 0.999, eps 1e-8, bias-corrected moments, eps outside the
+    root): the same update as ``optax.adam(lr)`` up to rounding;
+  * ``fit``'s host-side draws -- the pixel minibatch -- come from an
+    explicit ``torch.Generator`` seeded from the step key's words, not from
+    JAX's shuffle, so a whole ``fit`` trajectory differs from the JAX
+    package's by design. The step keys themselves (``fold_in(base, i)``,
+    then ``fold_in(., 0)`` / ``fold_in(., 1)``) are the JAX package's bit
+    for bit, and at the step level -- where ``pixel_ids`` and the key are
+    arguments -- the two packages agree.
+
+Not carried yet (each raises ``NotImplementedError`` naming ROADMAP.md):
+the gradient surrogates (``boundary_samples``, ``secondary_samples``,
+``rr_grad``), ``mesh`` (multi-GPU) and ``engine="wavefront"`` (the
+regenerative AD pool, which is also what ``"auto"`` picks above the
+crossover depth).
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from ..config import RenderConfig
+from ..models.camera import Camera
+from ..models.scene import Scene
+from ..ops import threefry as tf
+from ..render import render_pixels_impl
+from ..utils.device import resolve_device
+
+DIFFERENTIABLE_LEAVES = ("centers", "radii", "albedo", "fuzz", "ior")
+
+
+def params_from_scene(scene: Scene,
+                      which: Iterable[str] = DIFFERENTIABLE_LEAVES) -> dict:
+    """Extract the optimizable parameters: a {name: leaf tensor} dict.
+    Each tensor is a detached copy of the scene's with ``requires_grad``
+    (an optimiser updates it in place; the scene stays as it was)."""
+    which = tuple(which)
+    bad = set(which) - set(DIFFERENTIABLE_LEAVES)
+    if bad:
+        raise ValueError(f"non-differentiable scene leaves: {sorted(bad)}")
+    return {name: getattr(scene, name).detach().clone().requires_grad_(True)
+            for name in which}
+
+
+def params_from_numpy(arrays: dict, device=None) -> dict:
+    """{name: numpy array} -> {name: float32 leaf tensor with
+    ``requires_grad``} on ``device`` (None = the CUDA card). Carries the
+    JAX package's parameter dict across."""
+    device = resolve_device(device)
+    bad = set(arrays) - set(DIFFERENTIABLE_LEAVES)
+    if bad:
+        raise ValueError(f"non-differentiable scene leaves: {sorted(bad)}")
+    return {name: torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+            .requires_grad_(True) for name, a in arrays.items()}
+
+
+def scene_with_params(scene: Scene, params: dict) -> Scene:
+    """Rebuild a Scene with the optimized leaves substituted in."""
+    return scene._replace(**params)
+
+
+# ---------------------------------------------------------------------------
+# Adam state <-> optax's (count, mu, nu)
+# ---------------------------------------------------------------------------
+
+def make_adam(params: dict, learning_rate: float) -> torch.optim.Adam:
+    """``torch.optim.Adam`` over the parameter dict with the constants of
+    ``optax.adam(learning_rate)``: b1 0.9, b2 0.999, eps 1e-8 (outside the
+    root), bias-corrected moments, no weight decay."""
+    return torch.optim.Adam([params[k] for k in sorted(params)],
+                            lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _param_slots(optimizer: torch.optim.Optimizer, params: dict) -> dict:
+    """{name: index of the tensor in the optimiser's state_dict}."""
+    flat = [p for g in optimizer.param_groups for p in g["params"]]
+    slots = {}
+    for name, p in params.items():
+        hits = [i for i, q in enumerate(flat) if q is p]
+        if len(hits) != 1:
+            raise ValueError(f"parameter {name!r} is not bound to the "
+                             "optimiser exactly once")
+        slots[name] = hits[0]
+    return slots
+
+
+def adam_state_to_numpy(optimizer: torch.optim.Optimizer,
+                        params: dict) -> dict:
+    """The optimiser's state as optax lays Adam's out:
+    ``{"count": int32 scalar, "mu": {name: array}, "nu": {name: array}}``
+    (``count`` = steps taken, ``mu``/``nu`` = first/second moments; zeros
+    before the first step)."""
+    state = optimizer.state_dict()["state"]
+    count, mu, nu = 0, {}, {}
+    for name, slot in _param_slots(optimizer, params).items():
+        st = state.get(slot)
+        if st:
+            count = int(st["step"])
+            mu[name] = st["exp_avg"].detach().cpu().numpy().copy()
+            nu[name] = st["exp_avg_sq"].detach().cpu().numpy().copy()
+        else:
+            zeros = np.zeros(tuple(params[name].shape), np.float32)
+            mu[name], nu[name] = zeros, zeros.copy()
+    return {"count": np.asarray(count, np.int32), "mu": mu, "nu": nu}
+
+
+def adam_state_from_numpy(optimizer: torch.optim.Optimizer, params: dict,
+                          state: dict) -> None:
+    """Load optax-layout Adam state (``adam_state_to_numpy``'s form, or
+    optax's ``ScaleByAdamState`` fields as numpy) into the optimiser,
+    through its ``state_dict``."""
+    sd = optimizer.state_dict()
+    count = float(np.asarray(state["count"]))
+    for name, slot in _param_slots(optimizer, params).items():
+        p = params[name]
+        sd["state"][slot] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": torch.from_numpy(np.array(
+                state["mu"][name], dtype=np.float32)).to(p.device),
+            "exp_avg_sq": torch.from_numpy(np.array(
+                state["nu"][name], dtype=np.float32)).to(p.device),
+        }
+    optimizer.load_state_dict(sd)
+
+
+# ---------------------------------------------------------------------------
+# Engines
+# ---------------------------------------------------------------------------
+
+AD_ENGINE_AUTO_DEPTH = 32
+"""max_depth above which 'auto' picks the regenerative wavefront engine.
+The value is the JAX package's, carried so that 'auto' resolves to the
+same engine in both packages. It was not measured on an NVIDIA card: the
+regenerative AD pool is not ported yet, so there is no crossover to
+measure (PERF.md, open questions)."""
+
+AD_ENGINE_AUTO_DEPTH_RR = 28
+"""The same threshold with rr_terminate=True; carried, not measured on an
+NVIDIA card (see AD_ENGINE_AUTO_DEPTH)."""
+
+
+def resolve_ad_engine(max_depth: int, rr_terminate: bool = False) -> str:
+    """'auto' policy: the fixed-depth planar engine at low depth, the
+    regenerative pool past AD_ENGINE_AUTO_DEPTH (or the lower
+    AD_ENGINE_AUTO_DEPTH_RR when the estimator terminates paths)."""
+    cut = AD_ENGINE_AUTO_DEPTH_RR if rr_terminate else AD_ENGINE_AUTO_DEPTH
+    return "wavefront" if max_depth > cut else "planar"
+
+
+def _later(what: str, where: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
+                              f"{where})")
+
+
+def _check_carried(mesh, boundary_samples, secondary_samples, rr_grad):
+    if mesh is not None:
+        _later("mesh= (multi-GPU inverse rendering)",
+               "Queue 1 item 12: multi-GPU")
+    if boundary_samples:
+        _later("boundary_samples > 0 (the silhouette boundary term)",
+               "Queue 1 item 11: gradient surrogates")
+    if secondary_samples:
+        _later("secondary_samples > 0 (the one-bounce boundary term)",
+               "Queue 1 item 11: gradient surrogates")
+    if rr_grad:
+        _later("rr_grad=True (the Russian-roulette branch-flip term)",
+               "Queue 1 item 11: gradient surrogates")
+
+
+def _render_batch(full_scene, cam, pixel_ids, base_key, *, width, height,
+                  spp, max_depth, camera_mode, options, engine,
+                  engine_opts=None):
+    """Differentiable (P, 3) pixel batch via the chosen AD engine (on one
+    device: callers refuse ``mesh`` before they get here)."""
+    if engine == "auto":
+        engine = resolve_ad_engine(max_depth, options.rr_terminate)
+        if engine == "wavefront":
+            _later(f"engine='auto' at max_depth={max_depth} (it resolves "
+                   "to the regenerative AD pool; ask for engine='planar' "
+                   "or 'tiled')", "Queue 1 item 9: ops/wavefront_ad.py")
+    if engine == "planar":
+        from ..ops.integrate_planar import render_pixels_planar_impl
+        impl = render_pixels_planar_impl
+    elif engine == "wavefront":
+        _later("engine='wavefront' (the regenerative AD pool)",
+               "Queue 1 item 9: ops/wavefront_ad.py")
+    elif engine == "tiled":
+        impl = render_pixels_impl
+    else:
+        raise ValueError(f"unknown AD engine: {engine!r}")
+    kwargs = dict(width=width, height=height, spp=spp,
+                  max_depth=max_depth, camera_mode=camera_mode,
+                  options=options, differentiable=True)
+    if engine_opts:
+        # Engine-specific static knobs (e.g. the planar engine's
+        # sample_offset / spp_strata).
+        kwargs.update(engine_opts)
+    if engine == "tiled":
+        kwargs["wave_spp"] = spp
+    return impl(full_scene, cam, pixel_ids, base_key, **kwargs)
+
+
+def render_loss(params: dict, scene: Scene, cam: Camera, target_pixels,
+                pixel_ids, base_key, *, width: int, height: int, spp: int,
+                max_depth: int, camera_mode: str, options, mesh=None,
+                boundary_samples: int = 0, secondary_samples: int = 0,
+                secondary_spheres: int = 2,
+                secondary_vertex_depths: int = 1, rr_grad: bool = False,
+                rr_grad_arms: int = 2, engine: str = "auto",
+                engine_opts: dict | None = None):
+    """Mean-squared error between rendered and target pixel radiance: a
+    scalar tensor, differentiable w.r.t. the tensors of ``params``.
+
+    target_pixels: (P, 3) linear radiance for the same pixel_ids (a (P,)
+    i32 tensor); base_key: the (k0, k1) base-key words. Everything lies on
+    the device of the scene.
+
+    engine: "auto" (resolve_ad_engine picks by max_depth: the fixed-depth
+    planar engine up to the crossover depth; above it the regenerative
+    pool, not ported yet), "planar" ((R, 128) planes + the hand-written
+    closest-hit kernel under autograd, ops/integrate_planar.py), or
+    "tiled" (the (N, 3) engine). Same RNG contract, radiance agrees to
+    float32 reassociation.
+
+    The surrogate knobs (boundary_samples, secondary_samples, rr_grad) are
+    accepted at their off values only.
+    """
+    del secondary_spheres, secondary_vertex_depths, rr_grad_arms
+    _check_carried(mesh, boundary_samples, secondary_samples, rr_grad)
+    full_scene = scene_with_params(scene, params)
+    rendered = _render_batch(full_scene, cam, pixel_ids, base_key,
+                             width=width, height=height, spp=spp,
+                             max_depth=max_depth, camera_mode=camera_mode,
+                             options=options, engine=engine,
+                             engine_opts=engine_opts)
+    diff = rendered - target_pixels
+    return torch.mean(diff * diff)
+
+
+def render_pixels_vjp(params: dict, scene: Scene, cam: Camera, cotangent,
+                      pixel_ids, base_key, *, width: int, height: int,
+                      spp: int, max_depth: int, camera_mode: str, options,
+                      mesh=None, boundary_samples: int = 0,
+                      secondary_samples: int = 0, secondary_spheres: int = 2,
+                      secondary_vertex_depths: int = 1,
+                      rr_grad: bool = False, rr_grad_arms: int = 2,
+                      engine: str = "auto",
+                      engine_opts: dict | None = None):
+    """Direct pixel-Jacobian VJP: d<cotangent, I(params)>/d(params).
+
+    For an ARBITRARY per-pixel cotangent u (P, 3) -- a one-hot u selects a
+    single d(pixel)/d(param) row -- returns (grads, pixels): the gradient
+    of sum(u * I) as a {name: tensor} dict and the rendered (P, 3) batch
+    (detached). No target/MSE is involved. All keyword knobs mean what
+    they mean in render_loss.
+    """
+    del secondary_spheres, secondary_vertex_depths, rr_grad_arms
+    _check_carried(mesh, boundary_samples, secondary_samples, rr_grad)
+    full_scene = scene_with_params(scene, params)
+    rendered = _render_batch(
+        full_scene, cam, pixel_ids, base_key, width=width, height=height,
+        spp=spp, max_depth=max_depth, camera_mode=camera_mode,
+        options=options, engine=engine, engine_opts=engine_opts)
+    cot = torch.as_tensor(cotangent, dtype=torch.float32,
+                          device=rendered.device).detach()
+    names = list(params)
+    grads = torch.autograd.grad(torch.sum(rendered * cot),
+                                [params[k] for k in names])
+    return dict(zip(names, grads)), rendered.detach()
+
+
+def make_train_step(optimizer: torch.optim.Optimizer, *, width: int,
+                    height: int, spp: int, max_depth: int, camera_mode: str,
+                    options, mesh=None, boundary_samples: int = 0,
+                    secondary_samples: int = 0, secondary_spheres: int = 2,
+                    secondary_vertex_depths: int = 1, rr_grad: bool = False,
+                    rr_grad_arms: int = 2, engine: str = "auto",
+                    engine_opts: dict | None = None):
+    """Build ``step(params, scene, cam, target_pixels, pixel_ids,
+    base_key) -> loss``.
+
+    ``optimizer`` is a ``torch.optim`` optimiser bound to the tensors of
+    the ``params`` dict the step will be called with (``make_adam``). One
+    step: forward render, backward pass (rematerialised per bounce inside
+    the engine), optimiser update IN PLACE on the parameter tensors. The
+    loss comes back as a detached scalar tensor on the device; nothing is
+    read to the host.
+    """
+    _check_carried(mesh, boundary_samples, secondary_samples, rr_grad)
+
+    def step(params, scene, cam, target_pixels, pixel_ids, base_key):
+        optimizer.zero_grad(set_to_none=True)
+        loss = render_loss(
+            params, scene, cam, target_pixels, pixel_ids, base_key,
+            width=width, height=height, spp=spp, max_depth=max_depth,
+            camera_mode=camera_mode, options=options, mesh=mesh,
+            boundary_samples=boundary_samples,
+            secondary_samples=secondary_samples,
+            secondary_spheres=secondary_spheres,
+            secondary_vertex_depths=secondary_vertex_depths,
+            rr_grad=rr_grad, rr_grad_arms=rr_grad_arms, engine=engine,
+            engine_opts=engine_opts)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def step_keys(base_key, i: int):
+    """The keys of train step ``i`` -> (batch_key, render_key): words of
+    ``fold_in(fold_in(base, i), 0)`` and ``fold_in(fold_in(base, i), 1)``,
+    the JAX package's bit for bit."""
+    kstep = tf.fold_in_words(*base_key, i)
+    return tf.fold_in_words(*kstep, 0), tf.fold_in_words(*kstep, 1)
+
+
+def draw_pixel_batch(batch_key, n_pixels: int, batch_pixels: int,
+                     device) -> torch.Tensor:
+    """``batch_pixels`` distinct pixel ids, an i32 tensor on ``device``:
+    the head of a permutation drawn on the host from a ``torch.Generator``
+    seeded with the key's words (so the draw does not depend on the
+    device). Not JAX's shuffle: see the module docstring."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(((int(batch_key[0]) << 32) | int(batch_key[1]))
+                    & 0x7FFFFFFFFFFFFFFF)
+    perm = torch.randperm(n_pixels, generator=gen)[:batch_pixels]
+    return perm.to(torch.int32).to(device)
+
+
+def fit(scene: Scene, cam: Camera, target_image, cfg: RenderConfig, *,
+        which: Iterable[str] = DIFFERENTIABLE_LEAVES, steps: int = 200,
+        learning_rate: float = 1e-2, batch_pixels: int = 4096,
+        spp: int | None = None, base_key=None, mesh=None,
+        callback=None, init_params: dict | None = None,
+        init_opt_state: dict | None = None, start_step: int = 0,
+        boundary_samples: int = 0, secondary_samples: int = 0,
+        secondary_spheres: int = 2, secondary_vertex_depths: int = 1,
+        rr_grad: bool = False, rr_grad_arms: int = 2, engine: str = "auto",
+        engine_opts: dict | None = None, device=None):
+    """Optimize scene params toward a target image.
+
+    target_image: (H, W, 3) linear radiance (as produced by render.render).
+    Runs on ``device`` (None = the CUDA card; scene, camera and target are
+    moved there). Returns (optimized_scene, params, optimizer, losses):
+    ``optimizer`` is the bound ``torch.optim`` optimiser, which holds the
+    optimiser state (``adam_state_to_numpy`` reads it).
+
+    base_key: the (k0, k1) base-key words (None = those of seed 7). The
+    optimiser is ``make_adam(params, learning_rate)``.
+    ``init_params`` / ``init_opt_state`` / ``start_step`` resume from a
+    checkpoint (optim.checkpoint.load_checkpoint gives all three).
+    callback(i, params, optimizer, loss) runs after every step; reading
+    the loss as a float there, as ``fit`` itself does for ``losses``, is
+    one device->host read per step.
+    """
+    device = resolve_device(device)
+    scene, cam = scene.to(device), cam.to(device)
+    if base_key is None:
+        base_key = tf.key_words(7)
+    spp = spp or cfg.spp
+    if init_params is not None:
+        params = {k: v.detach().to(device).clone().requires_grad_(True)
+                  for k, v in init_params.items()}
+    else:
+        params = params_from_scene(scene, which)
+    opt = make_adam(params, learning_rate)
+    if init_opt_state is not None:
+        adam_state_from_numpy(opt, params, init_opt_state)
+
+    target_flat = torch.as_tensor(target_image, dtype=torch.float32,
+                                  device=device).reshape(-1, 3)
+    n_pixels = cfg.width * cfg.height
+    batch_pixels = min(batch_pixels, n_pixels)
+
+    step_fn = make_train_step(
+        opt, width=cfg.width, height=cfg.height, spp=spp,
+        max_depth=cfg.max_depth, camera_mode=cfg.camera_mode,
+        options=cfg.options, mesh=mesh,
+        boundary_samples=boundary_samples,
+        secondary_samples=secondary_samples,
+        secondary_spheres=secondary_spheres,
+        secondary_vertex_depths=secondary_vertex_depths,
+        rr_grad=rr_grad, rr_grad_arms=rr_grad_arms, engine=engine,
+        engine_opts=engine_opts)
+
+    losses = []
+    for i in range(start_step, start_step + steps):
+        batch_key, render_key = step_keys(base_key, i)
+        pixel_ids = draw_pixel_batch(batch_key, n_pixels, batch_pixels,
+                                     device)
+        target_batch = target_flat.index_select(0, pixel_ids.to(torch.int64))
+        loss = step_fn(params, scene, cam, target_batch, pixel_ids,
+                       render_key)
+        losses.append(float(loss))
+        if callback is not None:
+            callback(i, params, opt, losses[-1])
+    return scene_with_params(scene, params), params, opt, losses

@@ -7,6 +7,7 @@ pixels are within +-1 (the remaining 1% is the frame rule's knife-edge
 allowance).
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -105,14 +106,95 @@ def test_cli_device_default_is_cuda_and_unported_engines_raise(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             pcli.main(["render", *small])
-    for engine in ("tiled", "wavefront-dual", "wavefront-sharded"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pcli.main(["fit", "--width", "8", "--height", "8", "--steps",
+                       "1"])
+    for engine in ("wavefront-dual", "wavefront-sharded",
+                   "wavefront-dual-sharded"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pcli.main(["render", *small, "--device", "cpu", "--engine",
                        engine])
     with pytest.raises(SystemExit):  # not ported: no such subcommand/flag
-        pcli.main(["fit"])
+        pcli.main(["serve"])
     with pytest.raises(SystemExit):
         pcli.main(["render", "--via", "/tmp/sock"])
+    with pytest.raises(SystemExit):
+        pcli.main(["fit", "--via", "/tmp/sock"])
+
+
+FIT_FLAGS = ["--scene", "simple-cuda", "--width", "24", "--height", "16",
+             "--spp", "2", "--depth", "3", "--params", "albedo", "--fit-spp",
+             "2", "--batch-pixels", "128", "--device", "cpu"]
+
+
+def test_render_tiled_cpu_matches_jax_cli(tmp_path):
+    flags = ["--scene", "simple-cuda", "--width", "32", "--height", "24",
+             "--spp", "4", "--depth", "6", "--engine", "tiled"]
+    ours, theirs = str(tmp_path / "port.ppm"), str(tmp_path / "jax.ppm")
+    assert pcli.main(["render", *flags, "--device", "cpu", "--out",
+                      ours]) == 0
+    assert jcli.main(["render", *flags, "--out", theirs]) == 0
+    got, want = read_ppm(ours), jread_ppm(theirs)
+    assert got.shape == want.shape == (24, 32, 3)
+    within = (np.abs(got.astype(int) - want.astype(int)) <= 1).all(axis=-1)
+    assert within.mean() >= 0.99, within.mean()
+    with pytest.raises(ValueError, match="--stats"):
+        pcli.main(["render", *flags, "--device", "cpu", "--stats", "--out",
+                   ours])
+
+
+def test_fit_cpu_writes_a_checkpoint_and_resumes(tmp_path, capsys):
+    ck = str(tmp_path / "fit.npz")
+    assert pcli.main(["fit", *FIT_FLAGS, "--steps", "6", "--log-every", "2",
+                      "--checkpoint", ck, "--checkpoint-every", "4"]) == 0
+    said = capsys.readouterr().out
+    assert "rendering target..." in said and "step 6: loss" in said
+    assert re.search(r"albedo: max abs err vs truth = \d+\.\d{5}", said)
+    assert re.search(r"loss: \d+\.\d{6} -> \d+\.\d{6}", said)
+    with np.load(ck) as data:
+        assert int(data["__step__"]) == 6 and int(data["o0"]) == 6
+        assert data["p0"].shape == (4, 3)  # four materials
+    assert pcli.main(["fit", *FIT_FLAGS, "--steps", "2", "--resume", ck,
+                      "--checkpoint", ck, "--ad-engine", "tiled",
+                      "--rr-terminate", "--sampling", "stratified"]) == 0
+    assert "resumed from" in capsys.readouterr().out
+    with np.load(ck) as data:
+        assert int(data["__step__"]) == 8 and int(data["o0"]) == 8
+
+
+@pytest.mark.parametrize("flags", [
+    ["--boundary-samples", "4"], ["--secondary-samples", "2"],
+    ["--rr-grad"], ["--ad-engine", "wavefront"],
+    ["--depth", "40", "--ad-engine", "auto"],
+], ids=["boundary", "secondary", "rr_grad", "wavefront", "auto_deep"])
+def test_fit_refuses_what_is_not_ported(flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pcli.main(["fit", *FIT_FLAGS, "--steps", "1", *flags])
+
+
+def test_options_pick_the_kernel_on_a_cuda_device_only():
+    assert pcli._options("default").intersect == "jnp"
+    assert pcli._options("default",
+                         device=torch.device("cpu")).intersect == "jnp"
+    opts = pcli._options("reference-cuda", True, "stratified",
+                         device=torch.device("cuda"))
+    assert opts.intersect == "pallas" and opts.rr_terminate
+    assert opts.sampling == "stratified" and opts.refract == "reference"
+
+
+@pytest.mark.parametrize("flag, device, want", [
+    ("jnp", "cuda", "jnp"), ("pallas", "cpu", "pallas"),
+    ("auto", "cuda", "pallas"), ("auto", "cpu", "jnp"),
+])
+def test_intersect_flag_overrides_the_device_default(flag, device, want):
+    """--intersect jnp|pallas is taken as given on either device; only
+    "auto" looks at the device."""
+    opts = pcli._options("default", intersect=flag,
+                         device=torch.device(device))
+    assert opts.intersect == want
+    # the rest of the preset stays the preset's
+    assert opts == dataclasses.replace(pcli._options("default"),
+                                       intersect=want)
 
 
 def _port_sources():
@@ -128,7 +210,8 @@ def _port_sources():
 def test_port_sources_do_not_import_jax():
     files = _port_sources()
     assert len(files) > 20
-    pat = re.compile(r"^\s*(import|from)\s+(jax|raytracinginoneweekend_tpu)"
+    pat = re.compile(r"^\s*(import|from)\s+"
+                     r"(jax|optax|raytracinginoneweekend_tpu)"
                      r"(\s|\.|$)", re.M)
     for path in files:
         assert not pat.search(open(path).read()), path
@@ -145,7 +228,11 @@ def test_port_runs_without_jax_in_the_process():
         "    width=8, height=8, spp=1, max_depth=3, camera_mode='cuda',\n"
         "    options=rt.REFERENCE_CUDA, device='cpu')\n"
         "assert tuple(img.shape) == (64, 3)\n"
+        "assert cli.main(['fit', '--width', '12', '--height', '8', '--spp',\n"
+        "    '1', '--depth', '2', '--steps', '1', '--fit-spp', '1',\n"
+        "    '--batch-pixels', '32', '--device', 'cpu']) == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'optax' or m.startswith('optax.')\n"
         "       or m == 'raytracinginoneweekend_tpu'\n"
         "       or m.startswith('raytracinginoneweekend_tpu.')]\n"
         "assert not bad, bad\n"
@@ -169,7 +256,7 @@ def test_chip_smoke_fails_without_a_card():
     assert "no CUDA device" in res.stderr
 
 
-def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
+def test_cpu_tensors_never_reach_the_kernels(monkeypatch, tmp_path):
     """On CPU tensors the wrappers run the plain versions: nothing is
     built, loaded or counted."""
     from raytracinginoneweekend_tpu_torch import golden
@@ -183,7 +270,13 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     _, flags = golden.load_golden("golden_simple_cuda")
     img = golden.render_golden(flags, device="cpu", width=8, height=8)
     assert bool(torch.isfinite(img).all())
-    assert kernels.LAUNCHES == {"closest_hit": 0, "shade_regen": 0}
+    assert pcli.main(["fit", *FIT_FLAGS, "--steps", "1"]) == 0
+    assert pcli.main(["render", "--engine", "tiled", "--scene",
+                      "simple-cuda", "--width", "8", "--height", "8",
+                      "--spp", "1", "--depth", "2", "--device", "cpu",
+                      "--out", str(tmp_path / "tiled.ppm")]) == 0
+    assert kernels.LAUNCHES == {"closest_hit": 0, "shade_regen": 0,
+                                "intersect": 0}
     assert not os.path.exists(os.path.join(kernels.BUILD_DIR, "lock"))
 
 

@@ -174,3 +174,124 @@ def test_rr_terminate_update_close(rr_scale, rr_qmin, rr_start):
     for got, want in ((px, jx), (py, jy), (pz, jz)):
         np.testing.assert_allclose(got.numpy()[same], np.asarray(want)[same],
                                    atol=1e-6, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Key-array API (the tiled engine). The JAX package vmaps scalar functions
+# over a key array; the port's are batched over (N,) key-word tensors. Key
+# words and raw uniforms: BIT-EQUAL. Vectors through sin/cos/sqrt/pow of
+# two libms: rtol 1e-5 / atol 1e-6.
+# ---------------------------------------------------------------------------
+
+N_KEYS, KEY_SEED, KEY_SPP = 500, 11, 12
+
+
+def _pid_sid_flat():
+    g = np.random.default_rng(3)
+    return (g.integers(0, 5000, size=N_KEYS, dtype=np.int32),
+            g.integers(0, KEY_SPP, size=N_KEYS, dtype=np.int32))
+
+
+def _ray_keys():
+    pid, sid = _pid_sid_flat()
+    base = jax.random.key(KEY_SEED)
+    jkeys = jax.vmap(lambda p, s: jrng.ray_key(base, p, s))(
+        jnp.asarray(pid), jnp.asarray(sid))
+    pkeys = prng.ray_key(ptf.key_words(KEY_SEED), torch.from_numpy(pid),
+                         torch.from_numpy(sid))
+    return jkeys, pkeys
+
+
+def test_ray_key_words_bit_exact():
+    jkeys, pkeys = _ray_keys()
+    j0, j1 = jtf.key_words(jkeys)
+    np.testing.assert_array_equal(_np_u32(pkeys[0]), np.asarray(j0))
+    np.testing.assert_array_equal(_np_u32(pkeys[1]), np.asarray(j1))
+
+
+def test_step_key_fold_chain_bit_exact():
+    """fit's keys: fold_in(base, i), then fold_in(., 0) / fold_in(., 1)."""
+    from raytracinginoneweekend_tpu_torch.optim.inverse import step_keys
+
+    base = jax.random.key(7)
+    for i in (0, 1, 17, 1000):
+        kstep = jax.random.fold_in(base, i)
+        for which, got in zip((0, 1), step_keys(ptf.key_words(7), i)):
+            want = jtf.key_words(jax.random.fold_in(kstep, which))
+            assert tuple(int(w) for w in got) == tuple(
+                int(w) for w in want)
+
+
+def test_jitter_uv_bit_exact():
+    jkeys, pkeys = _ray_keys()
+    want = np.asarray(jax.vmap(jrng.jitter_uv)(jkeys))  # (N, 2)
+    got = prng.jitter_uv(pkeys)
+    for k in range(2):
+        np.testing.assert_array_equal(got[k].numpy(), want[:, k])
+
+
+@pytest.mark.parametrize("fn", ["lens_disk", "lens_sphere"])
+def test_lens_samples_close(fn):
+    jkeys, pkeys = _ray_keys()
+    want = jax.vmap(getattr(jrng, fn))(jkeys)
+    got = getattr(prng, fn)(pkeys)
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("sample", ["unit", "ball"])
+@pytest.mark.parametrize("bounce", [0, 3])
+def test_key_array_bounce_draws(bounce, sample):
+    jkeys, pkeys = _ray_keys()
+    wvec, wu = jax.vmap(lambda k: jrng.bounce_draws(k, bounce, sample))(
+        jkeys)
+    gvec, gu = prng.bounce_draws(pkeys, bounce, sample)
+    np.testing.assert_array_equal(gu.numpy(), np.asarray(wu))
+    np.testing.assert_allclose(gvec.numpy(), np.asarray(wvec), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("sample", ["unit", "ball"])
+def test_key_array_strat0_scatter(sample):
+    jkeys, pkeys = _ray_keys()
+    pid, sid = _pid_sid_flat()
+    base = jax.random.key(KEY_SEED)
+    want = jax.vmap(lambda k, p, s: jrng.strat0_scatter(
+        k, p, s, base, KEY_SPP, sample))(jkeys, jnp.asarray(pid),
+                                         jnp.asarray(sid))
+    got = prng.strat0_scatter(pkeys, torch.from_numpy(pid),
+                              torch.from_numpy(sid),
+                              ptf.key_words(KEY_SEED), KEY_SPP, sample)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_rr_terminate_update_qcap_and_stop_grad():
+    """rr_qcap caps the survival probability; stop_grad holds q constant
+    under autograd (the values are the same either way)."""
+    k0, k1 = _u32_planes(21, 2)
+    ax, ay, az = (torch.from_numpy(a).requires_grad_(True)
+                  for a in _uniform_planes(22, 3))
+    keep = torch.ones(SHAPE, dtype=torch.bool)
+    kw = dict(rr_start=1, rr_qmin=0.05, rr_scale=4.0)
+    outs = {}
+    for stop in (True, False):
+        o = prng.rr_terminate_update(_t(k0), _t(k1), 3, ax, ay, az, keep,
+                                     rr_qcap=0.5, stop_grad=stop, **kw)
+        outs[stop] = o
+        g, = torch.autograd.grad(o[0].sum(), ax)
+        if stop:  # d(ax/q)/d(ax) = 1/q >= 1/qcap on survivors
+            surv = o[3]
+            assert bool((g[surv] >= 2.0 - 1e-6).all())
+            assert bool((g[~surv] == 1.0).all())
+    for a, b in zip(outs[True], outs[False]):
+        np.testing.assert_array_equal(a.detach().numpy(),
+                                      b.detach().numpy())
+    jo = jrng.rr_terminate_update(
+        jnp.asarray(k0), jnp.asarray(k1), jnp.int32(3),
+        *(jnp.asarray(a.detach().numpy()) for a in (ax, ay, az)),
+        jnp.asarray(keep.numpy()), rr_qcap=0.5, **kw)
+    for g_, w in zip(outs[True], jo):
+        np.testing.assert_allclose(g_.detach().numpy(), np.asarray(w),
+                                   rtol=1e-6, atol=1e-7)
