@@ -6,8 +6,11 @@ Hopper, one slice at a time. It imports ``torch`` and ``numpy`` and nothing
 of JAX or of the JAX package. Modules keep the JAX package's names so that
 a reader finds the counterpart.
 
-Carried so far -- the forward wavefront render, the tiled engine and
-the training path (``fit`` with the planar and tiled AD engines):
+Carried so far -- the forward wavefront render with its coherent-ray
+variants (``ops.wavefront_dual.render_wavefront_dual``, and through
+``TraceOptions`` the sorted and mxu closest-hit kernels, tile ownership
+and the unfused step), the tiled engine and the training path (``fit``
+with the planar and tiled AD engines):
   Scenes:      Scene, simple_scene_cuda, simple_scene_cpu, huge_scene,
                validate_scene, scene_from_numpy
   Cameras:     Camera, make_camera, reference_cuda_camera,

@@ -10,15 +10,19 @@ subcommands the port carries:
 ``--device`` chooses where to run; absent, it is the CUDA card and the
 command fails when there is none (``--device cpu`` runs the plain PyTorch
 versions of the kernels). ``--engine`` is the single-pool wavefront
-(``auto``) or the tiled engine. ``--intersect`` chooses the tiled
+(``auto``), the dual-pool wavefront (``wavefront-dual``) or the tiled
+engine; ``--hit-kernel``, ``--ownership`` and ``--fusion`` choose the
+single pool's closest-hit kernel, task ownership and fusion level
+(TraceOptions.hit_kernel, .ownership, .mega). ``--intersect`` chooses the tiled
 engine's closest hit: ``pallas`` (the JAX package's name for the
 hand-written kernel), ``jnp`` (the plain version, what every preset
 names), or ``auto``, the default: the kernel on a CUDA device, the
 preset's own value elsewhere. That default is the one place where the
 same ``--compat`` gives other TraceOptions than the JAX package's CLI,
-which never sets the field (ROADMAP.md, Queue 3). ``serve``, ``--via``, ``--adaptive``, the other engines, the
-regenerative AD pool and the gradient surrogates come with later slices of
-the port (ROADMAP.md).
+which never sets the field (ROADMAP.md, Queue 3). ``serve``, ``--via``,
+``--adaptive``, the sharded engines, ``--fusion bounce``, the regenerative
+AD pool and the gradient surrogates come with later slices of the port
+(ROADMAP.md).
 
 Examples:
   python -m raytracinginoneweekend_tpu_torch render --scene simple-cuda \
@@ -65,7 +69,8 @@ def _build_camera(name: str, width: int, height: int, device):
 
 def _options(compat: str, rr_terminate: bool = False,
              sampling: str | None = None, intersect: str = "auto",
-             device=None):
+             device=None, fusion: str | None = None,
+             hit_kernel: str | None = None, ownership: str | None = None):
     """The preset's TraceOptions with the CLI's overrides. ``intersect``:
     "jnp" or "pallas" is taken as given; "auto" is the hand-written kernel
     ("pallas") on a CUDA ``device`` and the preset's value elsewhere. The
@@ -81,6 +86,12 @@ def _options(compat: str, rr_terminate: bool = False,
         opts = dataclasses.replace(opts, rr_terminate=True)
     if sampling is not None:
         opts = dataclasses.replace(opts, sampling=sampling)
+    if fusion is not None:
+        opts = dataclasses.replace(opts, mega=fusion)
+    if hit_kernel is not None:
+        opts = dataclasses.replace(opts, hit_kernel=hit_kernel)
+    if ownership is not None:
+        opts = dataclasses.replace(opts, ownership=ownership)
     if intersect == "auto":
         on_card = device is not None and device.type == "cuda"
         intersect = "pallas" if on_card else opts.intersect
@@ -103,10 +114,28 @@ def _add_render_flags(p: argparse.ArgumentParser):
     p.add_argument("--depth", type=int, default=32)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--engine", default="auto", choices=ENGINES,
-                   help="auto = the single-pool wavefront engine; tiled = "
-                        "the (N, 3) autograd-capable engine; the others "
-                        "are not ported yet and are refused")
+                   help="auto = the single-pool wavefront engine; "
+                        "wavefront-dual = the dual-pool engine (cone cull "
+                        "+ list kernel on the camera rays); tiled = the "
+                        "(N, 3) autograd-capable engine; the sharded "
+                        "engines are not ported yet and are refused")
     p.add_argument("--pool-size", type=int, default=1 << 15)
+    p.add_argument("--fusion", default=None,
+                   choices=["off", "bounce", "fused"],
+                   help="wavefront kernel-fusion level (TraceOptions.mega; "
+                        "default: the compat preset's, 'fused'; 'bounce' "
+                        "is not ported yet and is refused)")
+    p.add_argument("--hit-kernel", default=None,
+                   choices=["sublane", "mxu", "sorted"],
+                   help="closest-hit kernel (TraceOptions.hit_kernel; "
+                        "'sorted' = distance-ordered early exit, 'mxu' = "
+                        "regrouped dot products)")
+    p.add_argument("--ownership", default=None,
+                   choices=["strided", "tile"],
+                   help="wavefront task-ownership layout (TraceOptions."
+                        "ownership; 'tile' = block-contiguous 32x32-pixel "
+                        "tile ranges -- the coherent layout for "
+                        "--hit-kernel sorted)")
     p.add_argument("--intersect", default="auto",
                    choices=["auto", "jnp", "pallas"],
                    help="the tiled engine's closest hit "
@@ -125,7 +154,8 @@ def _add_render_flags(p: argparse.ArgumentParser):
                         "slightly higher MC variance)")
     p.add_argument("--stats", action="store_true",
                    help="print the wavefront engine's occupancy counters "
-                        "(iterations, traced segments, lane occupancy) as "
+                        "(iterations, traced segments, lane occupancy; "
+                        "for --engine wavefront-dual its metrics dict) as "
                         "a JSON line on stderr")
     p.add_argument("--device", default=None,
                    help="torch device to run on; default: the CUDA card "
@@ -140,17 +170,18 @@ def _render_image(args):
     from .ops.wavefront import render_wavefront
     from .utils.device import resolve_device
 
-    if args.engine not in ("auto", "wavefront", "tiled"):
+    if args.engine not in ("auto", "wavefront", "wavefront-dual", "tiled"):
         raise NotImplementedError(
             f"--engine {args.engine} is not ported yet (ROADMAP.md, "
-            "Queue 1: multi-GPU and the ablation engines)")
+            "Queue 1: multi-GPU)")
     device = resolve_device(args.device)
     scene = _build_scene(args.scene, args.seed, device)
     camera_name = args.camera or ("cuda" if args.scene == "simple-cuda"
                                   else "cpu")
     cam = _build_camera(camera_name, args.width, args.height, device)
     options = _options(args.compat, args.rr_terminate, args.sampling,
-                       args.intersect, device)
+                       args.intersect, device, args.fusion,
+                       args.hit_kernel, args.ownership)
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        max_depth=args.depth, camera_mode=args.mode,
                        options=options)
@@ -166,12 +197,21 @@ def _render_image(args):
               max_depth=args.depth, camera_mode=args.mode,
               options=options, pool_size=args.pool_size, device=device)
     key = key_words(args.seed)
-    if args.stats:
+    if args.engine == "wavefront-dual":
+        from .ops.wavefront_dual import render_wavefront_dual
+
+        if args.stats:
+            img, met = render_wavefront_dual(scene, cam, key,
+                                             with_metrics=True, **kw)
+            print(json.dumps(met), file=sys.stderr)
+        else:
+            img = render_wavefront_dual(scene, cam, key, **kw)
+    elif args.stats:
         img, stats = render_wavefront(scene, cam, key, return_stats=True,
                                       **kw)
         it, seg, lanes = stats["iters"], stats["segments"], stats["lanes"]
         print(json.dumps({
-            "iters": it, "segments": seg, "lanes": lanes,
+            **stats,
             "occupancy": seg / max(it * lanes, 1),
             "segments_per_camera_ray":
                 seg / (args.width * args.height * args.spp),
@@ -249,7 +289,8 @@ def _fit_impl(args, log=print) -> dict:
                        max_depth=args.depth, camera_mode=args.mode,
                        options=_options(args.compat, args.rr_terminate,
                                         args.sampling, args.intersect,
-                                        device))
+                                        device, args.fusion,
+                                        args.hit_kernel, args.ownership))
     log("rendering target...")
     target = render(scene, cam, cfg, key_words(args.seed), device=device)
 

@@ -24,12 +24,14 @@ class TraceOptions:
 
     Carried by every engine of the port: ``t_min``, ``scatter_sample``,
     ``sky``, ``refract``, ``sampling`` and the ``rr_*`` knobs. The
-    wavefront engine carries the defaults ``mega="fused"``,
-    ``hit_kernel="sublane"``, ``resolve="onehot"``,
-    ``ownership="strided"``; the other values of those four wait for later
-    slices of the port (ROADMAP.md). The tiled engine (render.py,
-    ops/integrate.py) carries ``sphere_block``, ``intersect`` and
-    ``gather``; the wavefront and planar engines ignore those three, as
+    wavefront engine carries ``mega`` "fused" and "off", every
+    ``hit_kernel`` (with ``sorted_rows`` and ``sorted_ladder``), both
+    ``ownership`` layouts and ``resolve="onehot"``; ``mega="bounce"`` and
+    the other two ``resolve`` values wait for later slices of the port
+    (ROADMAP.md). The dual-pool engine reads the estimator switches only.
+    The tiled engine (render.py, ops/integrate.py) carries
+    ``sphere_block``, ``intersect`` and ``gather``; the wavefront and
+    planar engines ignore those three, as
     the JAX package's do.
     """
 
@@ -55,12 +57,18 @@ class TraceOptions:
     sphere_block: int = 512
     intersect: str = "jnp"
     gather: str = "onehot"
-    # Wavefront engine fusion level: "fused" = closest-hit kernel + winner
-    # lookup + ONE shade/state/regen kernel (the port's only level so far);
-    # "bounce" and "off" are the JAX package's other two.
+    # Wavefront engine fusion level: "fused" = closest-hit kernel + ONE
+    # shade/state/regen kernel per iteration; "off" = the unrotated step,
+    # closest-hit kernel + plain PyTorch; "bounce" (the JAX package's
+    # whole-bounce kernel) is not ported yet.
     mega: str = "fused"
-    # Closest-hit kernel layout: "sublane" is the per-ray loop over the
-    # sphere table (ported); "mxu" and "sorted" are not ported yet.
+    # Closest-hit kernel: "sublane" = the per-ray loop over the whole
+    # sphere table; "mxu" = the same loop with the dot products regrouped
+    # as d.C and o.C (up to cuda_segment.MXU_MAX_SPHERES spheres);
+    # "sorted" = spheres in per-block distance order with a staged early
+    # exit. sorted_rows: rows of 128 lanes per cull block of the sorted
+    # kernel and per tile-ownership block (0 = 64). sorted_ladder: the
+    # chunk numbers (a chunk = 8 spheres) at which the exit is tested.
     hit_kernel: str = "sublane"
     sorted_rows: int = 0
     sorted_ladder: tuple = (4,)
@@ -74,7 +82,10 @@ class TraceOptions:
     # rotated-stratified / van-der-Corput scheme; unbiased -- ops/rng.py).
     sampling: str = "iid"
     # Wavefront task ownership layout: "strided" = lane l owns global
-    # tasks l, l+P, ... ; "tile" is not ported yet.
+    # tasks l, l+P, ... ; "tile" = each block of lanes owns a contiguous
+    # range of task ids in 32x32-pixel tile order (the coherent layout for
+    # hit_kernel="sorted"). Same paths; frames bit-identical with the
+    # plain versions, inside the frame rule on the card (ops/wavefront.py).
     ownership: str = "strided"
     # Russian-roulette PATH TERMINATION (opt-in estimator change; the
     # reference never terminates early). After a ray has completed

@@ -60,17 +60,7 @@ closest_hit_kernel(const int* __restrict__ act,
     int s_b = 0;
 #pragma unroll 4
     for (int s = 0; s < n_spheres; ++s) {
-        const float4 c4 = sph[s];
-        const float ocx = x - c4.x;
-        const float ocy = y - c4.y;
-        const float ocz = z - c4.z;
-        const float b = ocx * vx + ocy * vy + ocz * vz;
-        const float c = ocx * ocx + ocy * ocy + ocz * ocz - c4.w;
-        const float sq = sqrtf(b * b - a * c);  // NaN when disc < 0
-        const float nb = -b;
-        const float q0 = nb - sq;
-        const float q1 = nb + sq;
-        const float q = (q0 > q_min) ? q0 : ((q1 > q_min) ? q1 : RTW_BIG);
+        const float q = rtw_candidate(x, y, z, vx, vy, vz, a, q_min, sph[s]);
         if (q < q_b) {
             q_b = q;
             s_b = s;

@@ -46,6 +46,46 @@ __device__ __forceinline__ float rtw_min(float a, float b) {
     return (a < b || a != a) ? a : b;
 }
 
+// ---- ops/cuda_segment.py: the closest-hit candidate --------------------
+
+// One sphere's candidate for one ray, in q-space (q = t * |d|^2): the one
+// copy of the arithmetic that closest_hit, closest_hit_list and
+// closest_hit_sorted share (plain version: cuda_segment._candidates).
+// (x, y, z) origin, (vx, vy, vz) direction, a = |d|^2, q_min = t_min * a,
+// c4 = (cx, cy, cz, r*r). sqrtf of a negative discriminant is NaN and every
+// comparison with NaN is false, so a miss falls through to RTW_BIG; a pad
+// sphere (r*r = -1) can never give a candidate.
+__device__ __forceinline__ float rtw_candidate(float x, float y, float z,
+                                               float vx, float vy, float vz,
+                                               float a, float q_min,
+                                               float4 c4) {
+    const float ocx = x - c4.x;
+    const float ocy = y - c4.y;
+    const float ocz = z - c4.z;
+    const float b = ocx * vx + ocy * vy + ocz * vz;
+    const float c = ocx * ocx + ocy * ocy + ocz * ocz - c4.w;
+    const float sq = sqrtf(b * b - a * c);  // NaN when disc < 0
+    const float nb = -b;
+    const float q0 = nb - sq;
+    const float q1 = nb + sq;
+    return (q0 > q_min) ? q0 : ((q1 > q_min) ? q1 : RTW_BIG);
+}
+
+// A thread block's candidate list into shared memory: sph[k] = table[id],
+// ids[k] = id for the n entries of `list` (ids clamped to the table, whose
+// last row `pad_id` is the pad sphere, so a bad id cannot become a wild
+// read). The caller synchronises.
+__device__ __forceinline__ void rtw_gather_candidates(
+        const int* __restrict__ list, int n,
+        const float4* __restrict__ table, int pad_id, float4* sph,
+        int* ids) {
+    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+        const int id = min(max(list[k], 0), pad_id);
+        ids[k] = id;
+        sph[k] = table[id];
+    }
+}
+
 // ---- ops/threefry.py --------------------------------------------------
 
 __device__ __forceinline__ uint32_t rtw_rotl(uint32_t x, int r) {

@@ -8,8 +8,9 @@
 // threefry draws, lambert/metal/dielectric scatter and sky, the optional
 // bounce-0 stratified substitution, Russian roulette, the depth cap, the
 // sky deposit into the task accumulators, the move of a finished task into
-// a free pending slot, the strided acquisition of the next task, and the
-// camera ray (four modes, iid or stratified) of a re-issued lane.
+// a free pending slot, the acquisition of the next task (strided or tile
+// ownership), and the camera ray (four modes, iid or stratified) of a
+// re-issued lane.
 //
 // What bounds it: bytes. A lane reads 3 + 19 + 4*n_slots words and writes
 // 19 + 4*n_slots; the arithmetic (at most 9 threefry blocks and a handful
@@ -40,10 +41,32 @@
 struct ShadeRegenConfig {
     int max_depth, unit_sample, phys_refract, width, height, spp,
         task_samples, tpp, n_tasks, n_slots, stride, camera_mode,
-        rr_terminate, rr_start, stratified;
+        rr_terminate, rr_start, stratified,
+        own_bl, t_b, tiles_x, worker_base;  // tile ownership (own_bl > 0)
     float sky_bias, rr_qmin, rr_scale;
     uint32_t b0, b1;  // base-key words
 };
+
+// A task's virtual pixel -> row-major pixel id: itself under strided
+// ownership; under tile ownership (own_bl > 0) the 32x32 tile de-swizzle
+// of ops/cull.tile_pixel in integer arithmetic, an out-of-image virtual
+// pixel giving pixel 0 (it traces like any other and drops at the
+// engine's fold).
+#define SR_TILE 32
+__device__ __forceinline__ int sr_task_pixel(const ShadeRegenConfig& cfg,
+                                             int vp) {
+    if (!cfg.own_bl) return vp;
+    const int vp_c = max(vp, 0);
+    const int t_id = vp_c / (SR_TILE * SR_TILE);
+    const int o = vp_c - t_id * (SR_TILE * SR_TILE);
+    const int ty = t_id / cfg.tiles_x;
+    const int tx = t_id - ty * cfg.tiles_x;
+    const int oy_t = o / SR_TILE;
+    const int ox_t = o - oy_t * SR_TILE;
+    const int yp = ty * SR_TILE + oy_t;
+    const int xp = tx * SR_TILE + ox_t;
+    return (xp < cfg.width && yp < cfg.height) ? yp * cfg.width + xp : 0;
+}
 
 struct StatePtrs {
     void* p[SR_MAX_STATE];
@@ -111,7 +134,8 @@ shade_regen_kernel(const ShadeRegenConfig cfg, const StatePtrs in,
     if (cfg.stratified && dep == 0) {
         // First-bounce stratified scatter: the CURRENT ray's pixel from
         // its task (same arithmetic as the regeneration below).
-        const int pid_cur = rtw_floordiv(max(task, 0), cfg.tpp);
+        const int pid_cur =
+            sr_task_pixel(cfg, rtw_floordiv(max(task, 0), cfg.tpp));
         rtw_strat0_scatter(k0, k1, pid_cur, sid, cfg.b0, cfg.b1, cfg.spp,
                            cfg.unit_sample != 0, rvx, rvy, rvz);
     }
@@ -183,7 +207,12 @@ shade_regen_kernel(const ShadeRegenConfig cfg, const StatePtrs in,
         task = -1;
     }
 
-    const bool acquire = idle && (task < 0) && (nxt < cfg.n_tasks);
+    // The end of the lane's own task sequence: the whole frame under
+    // strided ownership, its ownership block's range under tile ownership.
+    const int block_end =
+        cfg.own_bl ? cfg.worker_base + (i / cfg.own_bl + 1) * cfg.t_b
+                   : cfg.n_tasks;
+    const bool acquire = idle && (task < 0) && (nxt < block_end);
     if (acquire) {
         task = nxt;
         nxt = nxt + cfg.stride;
@@ -191,7 +220,7 @@ shade_regen_kernel(const ShadeRegenConfig cfg, const StatePtrs in,
 
     const int vp = rtw_floordiv(task, cfg.tpp);
     const int run_start = (task - vp * cfg.tpp) * cfg.task_samples;
-    const int pid = vp;
+    const int pid = sr_task_pixel(cfg, vp);
     const bool next_sample =
         idle && has_task && (sid + 1 < run_end_old) && !task_done;
     sid = acquire ? run_start : (next_sample ? sid + 1 : sid);
@@ -239,7 +268,8 @@ extern "C" int rtw_shade_regen(const void* cfg_p, const void* const* state_in,
                                const void* table, const void* cam,
                                int n_lanes, int n_spheres, void* stream) {
     const ShadeRegenConfig cfg = *(const ShadeRegenConfig*)cfg_p;
-    if (cfg.n_slots < 1 || cfg.n_slots > SR_MAX_SLOTS || n_spheres < 1)
+    if (cfg.n_slots < 1 || cfg.n_slots > SR_MAX_SLOTS || n_spheres < 1
+            || cfg.own_bl < 0 || (cfg.own_bl > 0 && cfg.tiles_x < 1))
         return (int)cudaErrorInvalidValue;
     StatePtrs in = {}, out = {};
     const int n_state = SR_N_BASE + 4 * cfg.n_slots;

@@ -52,10 +52,28 @@ ENTRIES = {
     # | stream
     "rtw_closest_hit_n3": ("intersect.cu",
                            [_P] * 2 + [_P] + [_P] * 3 + [_I, _I, _F, _P]),
+    # counts lists | act ox oy oz dx dy dz | table4 (S+1) | hit t sb
+    # | n_lanes n_spheres block_lanes list_len t_min | stream
+    "rtw_closest_hit_list": ("closest_hit_list.cu",
+                             [_P] * 2 + [_P] * 7 + [_P] + [_P] * 3
+                             + [_I, _I, _I, _I, _F, _P]),
+    # ladder (host ints) n_ladder | perm suf oc yb | act ox oy oz dx dy dz
+    # | table4 (S+1) | hit t sb | stats | n_lanes n_spheres block_lanes
+    # n_chunks t_min | stream
+    "rtw_closest_hit_sorted": ("closest_hit_sorted.cu",
+                               [_P, _I] + [_P] * 4 + [_P] * 7 + [_P]
+                               + [_P] * 3 + [_P]
+                               + [_I, _I, _I, _I, _F, _P]),
+    # act ox oy oz dx dy dz | table4 (cx cy cz ccr) | hit t sb
+    # | n_lanes n_spheres t_min | stream
+    "rtw_closest_hit_mxu": ("closest_hit_mxu.cu",
+                            [_P] * 7 + [_P] + [_P] * 3 + [_I, _I, _F, _P]),
 }
 
 # Launch counts, one per kernel; each wrapper adds one where it launches.
-LAUNCHES = {"closest_hit": 0, "shade_regen": 0, "intersect": 0}
+LAUNCHES = {"closest_hit": 0, "shade_regen": 0, "intersect": 0,
+            "closest_hit_list": 0, "closest_hit_sorted": 0,
+            "closest_hit_mxu": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict = {}

@@ -48,10 +48,12 @@ import torch
 
 from .. import kernels
 from ..models.camera import Camera
+from . import cull
 from . import planar
 from . import rng
 from . import threefry as tf
-from .cuda_segment import LANES, check_current_device, resolve_params
+from .cuda_segment import (LANES, check_current_device, resolve_params,
+                           surface_from_params)
 
 N_BASE = 19  # must match ops/wavefront.py's lane-state layout
 ACT = 3      # index of the `active` plane within the state
@@ -75,7 +77,8 @@ class _Config(ctypes.Structure):
         [(n, ctypes.c_int) for n in (
             "max_depth", "unit_sample", "phys_refract", "width", "height",
             "spp", "task_samples", "tpp", "n_tasks", "n_slots", "stride",
-            "camera_mode", "rr_terminate", "rr_start", "stratified")]
+            "camera_mode", "rr_terminate", "rr_start", "stratified",
+            "own_bl", "t_b", "tiles_x", "worker_base")]
         + [(n, ctypes.c_float) for n in ("sky_bias", "rr_qmin", "rr_scale")]
         + [("b0", ctypes.c_uint32), ("b1", ctypes.c_uint32)])
 
@@ -101,16 +104,44 @@ def _fdiv(a, b: int):
     return torch.div(a, b, rounding_mode="floor")
 
 
+def _check_tile_kw(width: int, own_bl: int, t_b: int, tiles_x: int) -> None:
+    if own_bl < 0 or (own_bl and (
+            t_b <= 0 or tiles_x != cull.virtual_grid(width, 1)[0])):
+        raise ValueError(
+            f"tile ownership needs own_bl > 0, t_b > 0 and tiles_x = "
+            f"ceil(width / {cull.TILE}); got own_bl={own_bl} t_b={t_b} "
+            f"tiles_x={tiles_x} at width {width}")
+
+
+def _task_pixel(vp, width: int, height: int, own_bl: int):
+    """A task's virtual pixel -> row-major pixel id: itself under strided
+    ownership; under tile ownership the 32x32 tile de-swizzle
+    (cull.tile_pixel), out-of-image virtual pixels giving pixel 0 (they
+    trace like any other and drop at the engine's fold)."""
+    if not own_bl:
+        return vp
+    return cull.tile_pixel(torch.clamp(vp, min=0), width, height)[0]
+
+
 def regen(lane_state, camvec, base_words, *, width: int, height: int,
           spp: int, task_samples: int, tpp: int, n_tasks: int, n_slots: int,
-          stride: int, camera_mode: str, sampling: str = "iid"):
+          stride: int, camera_mode: str, sampling: str = "iid",
+          own_bl: int = 0, t_b: int = 0, tiles_x: int = 0,
+          worker_base: int = 0):
     """Regenerate dead lanes: move finished tasks to a pending slot,
-    acquire the next strided task, advance the sample id and issue the
-    camera ray. The second half of the fused step, and -- applied once to
-    the all-idle initial state -- the engine's prologue.
+    acquire the next task of the lane's own sequence, advance the sample
+    id and issue the camera ray. The second half of the fused step, and --
+    applied once to the all-idle initial state -- the engine's prologue.
+
+    own_bl = 0 is STRIDED ownership: a lane's sequence ends at n_tasks and
+    a task's virtual pixel is its pixel. own_bl > 0 is TILE ownership
+    (ops/wavefront.py): the lane's sequence ends at ``worker_base +
+    (lane // own_bl + 1) * t_b`` and task ids map to pixels through the
+    32x32 tile de-swizzle over a grid ``tiles_x`` tiles wide.
 
     Returns the next lane state (new tensors; same layout).
     """
+    _check_tile_kw(width, own_bl, t_b, tiles_x)
     (nxt, task, sid, act, ox, oy, oz, dx, dy, dz, ax, ay, az,
      depth, accr, accg, accb, k0, k1) = lane_state[:N_BASE]
     slots = [tuple(lane_state[N_BASE + 4 * j: N_BASE + 4 * (j + 1)])
@@ -143,13 +174,20 @@ def regen(lane_state, camvec, base_words, *, width: int, height: int,
     task = torch.where(moved, torch.full_like(task, -1), task)
 
     # 2. Taskless lanes acquire their next strided task.
-    acquire = idle & (task < 0) & (nxt < n_tasks)
+    if own_bl:
+        lane = torch.arange(nxt.numel(), dtype=_I32,
+                            device=nxt.device).reshape(nxt.shape)
+        block_end = worker_base + (_fdiv(lane, own_bl) + 1) * t_b
+    else:
+        block_end = n_tasks
+    acquire = idle & (task < 0) & (nxt < block_end)
     task = torch.where(acquire, nxt, task)
     nxt = torch.where(acquire, nxt + stride, nxt)
 
     # 3. Recompute pixel/run for the (possibly new) task; advance sid.
-    pid = _fdiv(task, tpp)
-    run_start = (task - pid * tpp) * task_samples
+    vp = _fdiv(task, tpp)
+    run_start = (task - vp * tpp) * task_samples
+    pid = _task_pixel(vp, width, height, own_bl)
     next_sample = idle & has_task & (sid + 1 < run_end_old) & ~task_done
     sid = torch.where(acquire, run_start,
                       torch.where(next_sample, sid + 1, sid))
@@ -174,45 +212,35 @@ def regen(lane_state, camvec, base_words, *, width: int, height: int,
             *(p for s in new_slots for p in s))
 
 
-def shade_regen_reference(lane_state, seg, params, camvec, base_words, *,
-                          max_depth: int, unit_sample: bool,
-                          phys_refract: bool, sky_bias: float, width: int,
-                          height: int, spp: int, task_samples: int, tpp: int,
-                          n_tasks: int, n_slots: int, stride: int,
-                          camera_mode: str, rr_terminate: bool = False,
-                          rr_start: int = 3, rr_qmin: float = 0.05,
-                          rr_scale: float = 1.0, sampling: str = "iid"):
-    """Plain PyTorch version of the fused shade+regen kernel.
+def shade_update(lane_state, seg, base_words, *, max_depth: int,
+                 unit_sample: bool, phys_refract: bool, sky_bias: float,
+                 width: int, height: int, spp: int, tpp: int,
+                 rr_terminate: bool = False, rr_start: int = 3,
+                 rr_qmin: float = 0.05, rr_scale: float = 1.0,
+                 sampling: str = "iid", own_bl: int = 0):
+    """Shade the segment just traced and update the lane state: the first
+    half of the fused step (and the second half of the unrotated
+    ``mega="off"`` step), in plain PyTorch.
 
-    seg: (hit_i, t) planes; params: the 10 resolved per-ray param planes
-    (ops/cuda_segment.resolve_params). Everything else as ``shade_regen``.
-    Returns the next lane state as new tensors.
+    seg: the surface/material planes of
+    ops/cuda_segment.surface_from_params. Returns the next lane state with
+    ``active`` = the lanes that keep tracing, before any regeneration.
     """
     (nxt, task, sid, act, ox, oy, oz, dx, dy, dz, ax, ay, az,
      dep, acr, acg, acb, k0, k1) = lane_state[:N_BASE]
-    chx, chy, chz, rh, mt, alr, alg, alb, fz, io = params
-    hit_i, seg_t = seg
     active = act > 0
-
-    # ---- shade the segment just traced --------------------------------
-    hit = hit_i > 0
-    t_safe = torch.where(hit, seg_t, torch.ones_like(seg_t))
-    px = ox + t_safe * dx
-    py = oy + t_safe * dy
-    pz = oz + t_safe * dz
-    inv_r = 1.0 / torch.where(rh != 0.0, rh, torch.ones_like(rh))
-    surf = {"nx": (px - chx) * inv_r, "ny": (py - chy) * inv_r,
-            "nz": (pz - chz) * inv_r, "mt": mt, "fz": fz, "io": io}
+    hit = seg["hit"] > 0
 
     strat0 = None
     if sampling == "stratified":
         # First-bounce stratified scatter: the CURRENT ray's pixel from
         # its task plane (same arithmetic as regen).
-        pid_cur = _fdiv(torch.clamp(task, min=0), tpp)
+        pid_cur = _task_pixel(_fdiv(torch.clamp(task, min=0), tpp), width,
+                              height, own_bl)
         strat0 = planar.strat0_scatter_planes(k0, k1, pid_cur, sid,
                                               base_words, spp, unit_sample)
     sdx, sdy, sdz, valid, sky_r, sky_g, sky_b = planar.bounce_planar(
-        surf, (dx, dy, dz), k0, k1, dep, unit_sample=unit_sample,
+        seg, (dx, dy, dz), k0, k1, dep, unit_sample=unit_sample,
         phys_refract=phys_refract, sky_bias=sky_bias, strat0=strat0)
 
     miss_now = active & ~hit
@@ -224,29 +252,54 @@ def shade_regen_reference(lane_state, seg, params, camvec, base_words, *,
     acg = torch.where(miss_now, acg + ay * sky_g, acg)
     acb = torch.where(miss_now, acb + az * sky_b, acb)
 
-    ox = torch.where(keep, px, ox)
-    oy = torch.where(keep, py, oy)
-    oz = torch.where(keep, pz, oz)
+    ox = torch.where(keep, seg["px"], ox)
+    oy = torch.where(keep, seg["py"], oy)
+    oz = torch.where(keep, seg["pz"], oz)
     dx = torch.where(keep, sdx, dx)
     dy = torch.where(keep, sdy, dy)
     dz = torch.where(keep, sdz, dz)
-    ax = torch.where(keep, ax * alr, ax)
-    ay = torch.where(keep, ay * alg, ay)
-    az = torch.where(keep, az * alb, az)
+    ax = torch.where(keep, ax * seg["ar"], ax)
+    ay = torch.where(keep, ay * seg["ag"], ay)
+    az = torch.where(keep, az * seg["ab"], az)
     if rr_terminate:
         ax, ay, az, keep = rng.rr_terminate_update(
             k0, k1, dep, ax, ay, az, keep, rr_start=rr_start,
             rr_qmin=rr_qmin, rr_scale=rr_scale)
     dep = torch.where(keep, dep + 1, dep)
+    return (nxt, task, sid, keep.to(_I32), ox, oy, oz, dx, dy, dz,
+            ax, ay, az, dep, acr, acg, acb, k0, k1, *lane_state[N_BASE:])
 
-    # ---- regenerate for the NEXT iteration ----------------------------
-    shaded = (nxt, task, sid, keep.to(_I32), ox, oy, oz, dx, dy, dz,
-              ax, ay, az, dep, acr, acg, acb, k0, k1,
-              *lane_state[N_BASE:])
+
+def shade_regen_reference(lane_state, seg, params, camvec, base_words, *,
+                          max_depth: int, unit_sample: bool,
+                          phys_refract: bool, sky_bias: float, width: int,
+                          height: int, spp: int, task_samples: int, tpp: int,
+                          n_tasks: int, n_slots: int, stride: int,
+                          camera_mode: str, rr_terminate: bool = False,
+                          rr_start: int = 3, rr_qmin: float = 0.05,
+                          rr_scale: float = 1.0, sampling: str = "iid",
+                          own_bl: int = 0, t_b: int = 0, tiles_x: int = 0,
+                          worker_base: int = 0):
+    """Plain PyTorch version of the fused shade+regen kernel:
+    ``shade_update`` then ``regen``.
+
+    seg: (hit_i, t) planes; params: the 10 resolved per-ray param planes
+    (ops/cuda_segment.resolve_params). Everything else as ``shade_regen``.
+    Returns the next lane state as new tensors.
+    """
+    hit_i, seg_t = seg
+    surf = surface_from_params(tuple(lane_state[4:10]), params, hit_i, seg_t)
+    shaded = shade_update(
+        lane_state, surf, base_words, max_depth=max_depth,
+        unit_sample=unit_sample, phys_refract=phys_refract,
+        sky_bias=sky_bias, width=width, height=height, spp=spp, tpp=tpp,
+        rr_terminate=rr_terminate, rr_start=rr_start, rr_qmin=rr_qmin,
+        rr_scale=rr_scale, sampling=sampling, own_bl=own_bl)
     return regen(shaded, camvec, base_words, width=width, height=height,
                  spp=spp, task_samples=task_samples, tpp=tpp,
                  n_tasks=n_tasks, n_slots=n_slots, stride=stride,
-                 camera_mode=camera_mode, sampling=sampling)
+                 camera_mode=camera_mode, sampling=sampling, own_bl=own_bl,
+                 t_b=t_b, tiles_x=tiles_x, worker_base=worker_base)
 
 
 def _check_planes(planes, n_slots: int, shape, device, what: str) -> None:
@@ -270,7 +323,9 @@ def shade_regen(lane_state, seg, table, camvec, base_words, *,
                 task_samples: int, tpp: int, n_tasks: int, n_slots: int,
                 stride: int, camera_mode: str, rr_terminate: bool = False,
                 rr_start: int = 3, rr_qmin: float = 0.05,
-                rr_scale: float = 1.0, sampling: str = "iid", out=None):
+                rr_scale: float = 1.0, sampling: str = "iid", out=None,
+                own_bl: int = 0, t_b: int = 0, tiles_x: int = 0,
+                worker_base: int = 0):
     """One fused shade+state-update+regen step on the lane state.
 
     lane_state: the (19 + 4*n_slots)-plane tuple of the module docstring.
@@ -278,6 +333,8 @@ def shade_regen(lane_state, seg, table, camvec, base_words, *,
     table: ops/cuda_segment.sphere_table(sphere_params), the (S, 10) f32
       per-sphere table the winner's parameters are read from.
     camvec: pack_camera(cam); base_words: the (k0, k1) base-key words.
+    own_bl, t_b, tiles_x, worker_base: tile ownership (see ``regen``;
+      own_bl = 0, the default, is strided ownership).
     out: optional tuple of planes to write the next state into (CUDA
       only); ``out=lane_state`` updates the state in place. Absent, new
       planes are allocated.
@@ -294,12 +351,14 @@ def shade_regen(lane_state, seg, table, camvec, base_words, *,
         raise ValueError(
             "shade_regen: width, height, tpp, task_samples, stride and "
             "max_depth must be positive")
+    _check_tile_kw(width, own_bl, t_b, tiles_x)
     hit_i, seg_t, s_b = seg
     opts = dict(max_depth=max_depth, unit_sample=unit_sample,
                 phys_refract=phys_refract, sky_bias=sky_bias, width=width,
                 height=height, spp=spp, task_samples=task_samples, tpp=tpp,
                 n_tasks=n_tasks, n_slots=n_slots, stride=stride,
-                rr_terminate=rr_terminate, rr_start=rr_start)
+                rr_terminate=rr_terminate, rr_start=rr_start, own_bl=own_bl,
+                t_b=t_b, tiles_x=tiles_x, worker_base=worker_base)
     device = hit_i.device
     if device.type == "cpu":
         if out is not None:

@@ -1,8 +1,12 @@
-"""Closest-hit over planar rays: CUDA kernel wrapper and plain version.
+"""Closest-hit over planar rays: CUDA kernel wrappers and plain versions.
 
-Counterpart of ``raytracinginoneweekend_tpu/ops/pallas_segment.py`` (the
-part the forward wavefront path runs: ``sphere_params_from_scene``,
-``segment_closest_hit``, ``closest_hit_planar``, ``resolve_params``).
+Counterpart of ``raytracinginoneweekend_tpu/ops/pallas_segment.py``:
+``sphere_params_from_scene``, ``segment_closest_hit`` and its three
+siblings for coherent rays (``segment_closest_hit_list``,
+``segment_closest_hit_sorted`` with ``sorted_cull_state``,
+``segment_closest_hit_mxu``), ``closest_hit_planar``, ``resolve_params``,
+``resolve_segment``, ``trace_segment`` and ``trace_segment_list``. The
+sphere-group kernel (``trace_segment(group_params=...)``) is not ported.
 
 KERNEL NOTE. ``segment_closest_hit`` on CUDA tensors launches
 ``csrc/closest_hit.cu``, which replaces the Pallas TPU kernel
@@ -13,7 +17,26 @@ reading one sphere at a time as a broadcast (see the source's header).
 ``segment_closest_hit_reference`` is its plain PyTorch version: the same
 candidate arithmetic in the same order, vectorised over (lanes, spheres).
 
-For a tensor on the CPU the wrapper runs the plain version; for a CUDA
+KERNEL NOTES, the three siblings (each source's header has the detail):
+  * ``segment_closest_hit_list`` launches ``csrc/closest_hit_list.cu``
+    (replaces ``pallas_segment.py::_kernel_list``): the loop runs over a
+    per-cull-block candidate list from ops/cull.py, gathered into shared
+    memory once per thread block. Bound by bytes at the list lengths of a
+    coherent block. Bit-identical with ``segment_closest_hit`` wherever
+    the list holds the true winner.
+  * ``segment_closest_hit_sorted`` launches ``csrc/closest_hit_sorted.cu``
+    (replaces ``_kernel_sorted``): spheres in per-cull-block distance
+    order, stages of the loop skipped when every lane of a warp provably
+    cannot improve. Bound by arithmetic when nothing is skipped. Equal to
+    ``segment_closest_hit`` except on exact q ties between two spheres.
+  * ``segment_closest_hit_mxu`` launches ``csrc/closest_hit_mxu.cu``
+    (replaces ``_kernel_mxu``): the regrouped dot products d.C and o.C in
+    the kernel's own body, in float32 in a fixed order. Bound by
+    arithmetic. Not bit-equal with ``segment_closest_hit``.
+Each has its plain PyTorch version beside it (``..._reference``), which
+does the same float32 operations in the same order.
+
+For a tensor on the CPU a wrapper runs the plain version; for a CUDA
 tensor it launches the kernel or raises -- it never falls back.
 
 Semantics (identical to the TPU kernel): near root preferred, far root
@@ -27,13 +50,21 @@ skipped block stale.
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from .. import kernels
+from ..utils.device import resolve_device
 from .rng import _f32
 
 LANES = 128
 BIG = 1e30
+UNROLL = 8  # spheres per chunk of the sorted kernel's order (the JAX value)
+MXU_MAX_SPHERES = 4096  # above it hit_kernel="mxu" means the sublane kernel
+MAX_LADDER = 16  # csrc/closest_hit_sorted.cu CS_MAX_LADDER
+_SORT_KEY_MARGIN = 1e-3  # key-side absolute margin (sorted_cull_state)
 MAX_SPHERES = (227 * 1024) // 16  # the table must fit a block's shared memory
 _REF_CHUNK = 1 << 16  # lanes per slab of the plain version's (N, S) arrays
 
@@ -73,6 +104,34 @@ def resolve_params(s_b, sphere_params):
     return tuple(p[idx] for p in sphere_params)
 
 
+def _candidates(x, y, z, vx, vy, vz, a, q_min, cx, cy, cz, rr):
+    """Every sphere's candidate for every ray in q-space (q = t*|d|^2),
+    broadcast over (rays, spheres): the one copy of the arithmetic that
+    the plain versions of closest_hit, closest_hit_list and
+    closest_hit_sorted share (csrc/rtw_common.cuh rtw_candidate)."""
+    ocx = x - cx
+    ocy = y - cy
+    ocz = z - cz
+    b = ocx * vx + ocy * vy + ocz * vz
+    c = ocx * ocx + ocy * ocy + ocz * ocz - rr
+    sq = torch.sqrt(b * b - a * c)  # NaN when disc < 0
+    nb = -b
+    q0 = nb - sq
+    q1 = nb + sq
+    big = torch.full_like(q0, BIG)
+    return torch.where(q0 > q_min, q0, torch.where(q1 > q_min, q1, big))
+
+
+def _mask_inactive(hit, t, sb, active):
+    """The port's convention: an inactive lane gets (0, 1e30, 0)."""
+    if active is None:
+        return hit, t, sb
+    act = active if active.dtype == torch.bool else active > 0
+    return (torch.where(act, hit, torch.zeros_like(hit)),
+            torch.where(act, t, torch.full_like(t, BIG)),
+            torch.where(act, sb, torch.zeros_like(sb)))
+
+
 def segment_closest_hit_reference(rays, cx, cy, cz, r, t_min, active=None):
     """Plain PyTorch version of the closest-hit kernel.
 
@@ -96,18 +155,7 @@ def segment_closest_hit_reference(rays, cx, cy, cz, r, t_min, active=None):
         vx, vy, vz = dx[sl], dy[sl], dz[sl]
         a = vx * vx + vy * vy + vz * vz
         inv_a = 1.0 / a
-        q_min = t_min * a
-        ocx = x - cx
-        ocy = y - cy
-        ocz = z - cz
-        b = ocx * vx + ocy * vy + ocz * vz
-        c = ocx * ocx + ocy * ocy + ocz * ocz - rr
-        sq = torch.sqrt(b * b - a * c)  # NaN when disc < 0
-        nb = -b
-        q0 = nb - sq
-        q1 = nb + sq
-        big = torch.full_like(q0, BIG)
-        q = torch.where(q0 > q_min, q0, torch.where(q1 > q_min, q1, big))
+        q = _candidates(x, y, z, vx, vy, vz, a, t_min * a, cx, cy, cz, rr)
         # torch.min returns the FIRST minimal index: the earliest sphere
         # wins ties, as the strict '<' running min does.
         q_b, s_b = torch.min(q, dim=1)
@@ -115,13 +163,8 @@ def segment_closest_hit_reference(rays, cx, cy, cz, r, t_min, active=None):
         hit[sl] = h.to(torch.int32)
         t[sl] = torch.where(h, q_b * inv_a[:, 0], torch.full_like(q_b, BIG))
         sb[sl] = s_b.to(torch.int32)
-    hit, t, sb = hit.reshape(shape), t.reshape(shape), sb.reshape(shape)
-    if active is not None:
-        act = active if active.dtype == torch.bool else active > 0
-        hit = torch.where(act, hit, torch.zeros_like(hit))
-        t = torch.where(act, t, torch.full_like(t, BIG))
-        sb = torch.where(act, sb, torch.zeros_like(sb))
-    return hit, t, sb
+    return _mask_inactive(hit.reshape(shape), t.reshape(shape),
+                          sb.reshape(shape), active)
 
 
 def _plane(x: torch.Tensor, dtype, shape, device, name: str):
@@ -146,6 +189,61 @@ def check_current_device(device: torch.device) -> None:
                          f"device is {torch.cuda.current_device()}")
 
 
+def _check_launch(name: str, rays, cx, cy, cz, r, active, max_spheres: int):
+    """What every closest-hit kernel asks of its CUDA inputs ->
+    (shape, device, n_spheres, i32 active plane)."""
+    ox = rays[0]
+    if ox.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {ox.device}")
+    shape, device = ox.shape, ox.device
+    if len(rays) != 6 or len(shape) != 2 or shape[1] != LANES:
+        raise ValueError(f"{name}: rays must be 6 (R, {LANES}) planes; "
+                         f"got {len(rays)} of shape {tuple(shape)}")
+    for pname, p in zip(("ox", "oy", "oz", "dx", "dy", "dz"), rays):
+        _plane(p, torch.float32, shape, device, pname)
+    n_spheres = cx.shape[0]
+    if not 1 <= n_spheres <= max_spheres:
+        raise ValueError(f"{name}: {n_spheres} spheres; the kernel "
+                         f"takes 1..{max_spheres}")
+    for pname, p in zip(("cx", "cy", "cz", "r"), (cx, cy, cz, r)):
+        if (p.dtype != torch.float32 or p.shape != (n_spheres,)
+                or p.device != device):
+            raise ValueError(f"{name}: {pname} must be ({n_spheres},) "
+                             f"float32 on {device}")
+    if active is None:
+        act = torch.ones(shape, dtype=torch.int32, device=device)
+    else:
+        if active.dtype == torch.bool:
+            active = active.to(torch.int32)
+        act = _plane(active, torch.int32, shape, device, "active")
+    check_current_device(device)
+    return shape, device, n_spheres, act
+
+
+def _check_table(name: str, table, rows: int, device):
+    if (table.dtype != torch.float32 or table.shape != (rows, 4)
+            or table.device != device or not table.is_contiguous()):
+        raise ValueError(f"{name}: table must be a contiguous "
+                         f"({rows}, 4) float32 tensor on {device}")
+    return table
+
+
+def _block_array(name: str, what: str, x, dtype, shape, device):
+    if (x.dtype != dtype or tuple(x.shape) != tuple(shape)
+            or x.device != device or not x.is_contiguous()):
+        raise ValueError(
+            f"{name}: {what} must be a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}; got {x.dtype} {tuple(x.shape)} "
+            f"on {x.device}, contiguous={x.is_contiguous()}")
+    return x
+
+
+def _outputs(shape, device):
+    return (torch.empty(shape, dtype=torch.int32, device=device),
+            torch.empty(shape, dtype=torch.float32, device=device),
+            torch.empty(shape, dtype=torch.int32, device=device))
+
+
 def segment_closest_hit(rays, cx, cy, cz, r, t_min, active=None, table=None):
     """Closest hit over planar rays -> (hit_i, t, sphere_idx).
 
@@ -160,39 +258,12 @@ def segment_closest_hit(rays, cx, cy, cz, r, t_min, active=None, table=None):
     if ox.device.type == "cpu":
         return segment_closest_hit_reference(rays, cx, cy, cz, r, t_min,
                                              active)
-    if ox.device.type != "cuda":
-        raise ValueError(f"closest_hit: no kernel for device {ox.device}")
-    shape, device = ox.shape, ox.device
-    if len(rays) != 6 or len(shape) != 2 or shape[1] != LANES:
-        raise ValueError(f"closest_hit: rays must be 6 (R, {LANES}) planes; "
-                         f"got {len(rays)} of shape {tuple(shape)}")
-    for name, p in zip(("ox", "oy", "oz", "dx", "dy", "dz"), rays):
-        _plane(p, torch.float32, shape, device, name)
-    n_spheres = cx.shape[0]
-    if not 1 <= n_spheres <= MAX_SPHERES:
-        raise ValueError(f"closest_hit: {n_spheres} spheres; the kernel "
-                         f"takes 1..{MAX_SPHERES}")
-    for name, p in zip(("cx", "cy", "cz", "r"), (cx, cy, cz, r)):
-        if (p.dtype != torch.float32 or p.shape != (n_spheres,)
-                or p.device != device):
-            raise ValueError(f"closest_hit: {name} must be ({n_spheres},) "
-                             f"float32 on {device}")
-    if active is None:
-        act = torch.ones(shape, dtype=torch.int32, device=device)
-    else:
-        if active.dtype == torch.bool:
-            active = active.to(torch.int32)
-        act = _plane(active, torch.int32, shape, device, "active")
-    check_current_device(device)
+    shape, device, n_spheres, act = _check_launch(
+        "closest_hit", rays, cx, cy, cz, r, active, MAX_SPHERES)
     if table is None:
         table = hit_table(cx, cy, cz, r)
-    elif (table.dtype != torch.float32 or table.shape != (n_spheres, 4)
-          or table.device != device or not table.is_contiguous()):
-        raise ValueError(f"closest_hit: table must be a contiguous "
-                         f"({n_spheres}, 4) float32 tensor on {device}")
-    hit = torch.empty(shape, dtype=torch.int32, device=device)
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    sb = torch.empty(shape, dtype=torch.int32, device=device)
+    _check_table("closest_hit", table, n_spheres, device)
+    hit, t, sb = _outputs(shape, device)
     fn = kernels.entry("rtw_closest_hit")
     err = fn(act.data_ptr(), *(p.data_ptr() for p in rays),
              table.data_ptr(), hit.data_ptr(), t.data_ptr(), sb.data_ptr(),
@@ -203,13 +274,472 @@ def segment_closest_hit(rays, cx, cy, cz, r, t_min, active=None, table=None):
     return hit, t, sb
 
 
+# ---------------------------------------------------------------------------
+# Per-cull-block candidate lists: the list kernel and the sorted kernel
+# ---------------------------------------------------------------------------
+
+def hit_table_padded(cx, cy, cz, r) -> torch.Tensor:
+    """(S + 1, 4) f32 table (cx, cy, cz, r*r) whose last row is the PAD
+    sphere (0, 0, 0, -1): its discriminant is b^2 - a(|oc|^2 + 1) <= -a < 0
+    (Cauchy-Schwarz), so it can never give a candidate. Lists and sort
+    orders pad with its id, S."""
+    pad = torch.tensor([[0.0, 0.0, 0.0, -1.0]], dtype=torch.float32,
+                       device=cx.device)
+    return torch.cat([hit_table(cx, cy, cz, r), pad]).contiguous()
+
+
+def _closest_over_block_lists(rays, table, ids, n_valid, t_min, rows: int,
+                              active):
+    """Plain closest hit where cull block b (``rows`` x 128 lanes) tests
+    the spheres ``ids[b, :n_valid[b]]`` of the padded ``table`` in that
+    order; torch.min keeps the FIRST least candidate, as the kernels'
+    strict '<' running min does. n_valid None = every column."""
+    shape = rays[0].shape
+    device = rays[0].device
+    nb, width = ids.shape
+    bl = rows * LANES
+    t_min = _f32(t_min)
+    if n_valid is not None and nb:
+        width = min(width, int(n_valid.max()))  # one host read
+    hit = torch.zeros((nb, bl), dtype=torch.int32, device=device)
+    t = torch.full((nb, bl), BIG, dtype=torch.float32, device=device)
+    sb = torch.zeros((nb, bl), dtype=torch.int32, device=device)
+    if width > 0:
+        ids = ids[:, :width].to(torch.int64)
+        ox, oy, oz, dx, dy, dz = (p.reshape(nb, bl, 1) for p in rays)
+        col = torch.arange(width, device=device)
+        step = max(1, (_REF_CHUNK * 512) // (bl * width))  # blocks a slab
+        for lo in range(0, nb, step):
+            sl = slice(lo, min(lo + step, nb))
+            cand = table[ids[sl]]                     # (b, width, 4)
+            vx, vy, vz = dx[sl], dy[sl], dz[sl]
+            a = vx * vx + vy * vy + vz * vz
+            inv_a = 1.0 / a
+            q = _candidates(ox[sl], oy[sl], oz[sl], vx, vy, vz, a,
+                            t_min * a, cand[:, None, :, 0],
+                            cand[:, None, :, 1], cand[:, None, :, 2],
+                            cand[:, None, :, 3])
+            if n_valid is not None:
+                past = col[None, :] >= n_valid[sl, None]
+                q = torch.where(past[:, None, :], torch.full_like(q, BIG), q)
+            q_b, k_b = torch.min(q, dim=2)
+            h = q_b < BIG
+            hit[sl] = h.to(torch.int32)
+            t[sl] = torch.where(h, q_b * inv_a[..., 0],
+                                torch.full_like(q_b, BIG))
+            won = torch.gather(ids[sl], 1, k_b).to(torch.int32)
+            # a lane that found nothing keeps index 0, as the running min
+            sb[sl] = torch.where(h, won, torch.zeros_like(won))
+    return _mask_inactive(hit.reshape(shape), t.reshape(shape),
+                          sb.reshape(shape), active)
+
+
+def _check_blocks(name: str, rays, rows: int) -> int:
+    r_total = rays[0].shape[0]
+    if rows <= 0 or r_total % rows:
+        raise ValueError(f"{name}: {r_total} rows of lanes do not divide "
+                         f"into cull blocks of rows={rows}")
+    return r_total // rows
+
+
+def segment_closest_hit_list_reference(rays, cx, cy, cz, r, counts, lists,
+                                       t_min, rows: int = 128, active=None):
+    """Plain PyTorch version of the list kernel (arguments as
+    ``segment_closest_hit_list``)."""
+    nb = _check_blocks("closest_hit_list", rays, rows)
+    if counts.shape != (nb,) or lists.dim() != 2 or lists.shape[0] != nb:
+        raise ValueError(f"closest_hit_list: counts {tuple(counts.shape)} "
+                         f"and lists {tuple(lists.shape)} do not describe "
+                         f"{nb} cull blocks")
+    return _closest_over_block_lists(
+        rays, hit_table_padded(cx, cy, cz, r), lists,
+        torch.clamp(counts, 0, lists.shape[1]), t_min, rows, active)
+
+
+def segment_closest_hit_list(rays, cx, cy, cz, r, counts, lists, t_min,
+                             rows: int = 128, active=None, table=None):
+    """List-driven closest hit: cull block b tests only its candidates.
+
+    counts: (B,) i32 candidates per cull block (B = R/rows; ops/cull.py
+      rounds them up to UNROLL_LIST and pads).
+    lists: (B, L) i32 sphere ids, ascending per block; entries past the
+      true count must index the pad sphere (id S), which never wins.
+    table: optional ``hit_table_padded(cx, cy, cz, r)``.
+    Returns (hit_i, t, sphere_idx) exactly like segment_closest_hit, and
+    bit-identical with it wherever the list holds the true winner. CUDA
+    tensors go through the hand-written kernel; CPU tensors through the
+    plain version.
+    """
+    ox = rays[0]
+    if ox.device.type == "cpu":
+        return segment_closest_hit_list_reference(
+            rays, cx, cy, cz, r, counts, lists, t_min, rows, active)
+    name = "closest_hit_list"
+    shape, device, n_spheres, act = _check_launch(
+        name, rays, cx, cy, cz, r, active, MAX_SPHERES - 1)
+    nb = _check_blocks(name, rays, rows)
+    _block_array(name, "counts", counts, torch.int32, (nb,), device)
+    if lists.dim() != 2:
+        raise ValueError(f"{name}: lists must be (B, L)")
+    list_len = lists.shape[1]
+    _block_array(name, "lists", lists, torch.int32, (nb, list_len), device)
+    if list_len * 20 > 227 * 1024:
+        raise ValueError(f"{name}: lists of {list_len} entries do not fit a "
+                         "block's shared memory")
+    if table is None:
+        table = hit_table_padded(cx, cy, cz, r)
+    _check_table(name, table, n_spheres + 1, device)
+    hit, t, sb = _outputs(shape, device)
+    fn = kernels.entry("rtw_closest_hit_list")
+    err = fn(counts.data_ptr(), lists.data_ptr(), act.data_ptr(),
+             *(p.data_ptr() for p in rays), table.data_ptr(),
+             hit.data_ptr(), t.data_ptr(), sb.data_ptr(), ox.numel(),
+             n_spheres, rows * LANES, list_len, float(t_min),
+             torch.cuda.current_stream(device).cuda_stream)
+    kernels.check(err, name)
+    kernels.LAUNCHES["closest_hit_list"] += 1
+    return hit, t, sb
+
+
+def sorted_cull_state(active, origins, cx, cy, cz, r, rows: int):
+    """Per-cull-block sphere ordering + early-exit bounds for the sorted
+    kernel. Plain PyTorch, called once per engine epoch.
+
+    active: (R, 128) bool/i32; origins: (ox, oy, oz) planar (R, 128).
+    cx/cy/cz/r: (S,) sphere geometry (the UNPADDED scene arrays).
+    Returns (perm (B, S_pad) i32, suf (B, n_chunks+1) f32, oc (B, 3) f32,
+    yb (2,) f32) where B = R/rows and S_pad rounds S up to UNROLL (pad
+    entries index the pad sphere id S).
+
+    key_j = |O_c - C_j| - |R_j| - margin is a lower bound on any lane's
+    hit distance on sphere j minus the lane's distance from the block's
+    active-origin centroid O_c. Staleness of O_c between epochs loosens
+    the early exit but never its soundness (the kernel measures |o - O_c|
+    per segment against the SAME O_c). The sort is stable, as the JAX
+    package's is.
+    """
+    ox, oy, oz = origins
+    nb = ox.shape[0] // rows
+    s = cx.shape[0]
+
+    def blk(v):
+        return v.reshape(nb, rows * LANES)
+
+    act = active if active.dtype == torch.bool else active > 0
+    m = blk(act.to(torch.float32))
+    n = m.sum(dim=1)
+    safe_n = torch.clamp(n, min=1.0)
+    ocx = (m * blk(ox)).sum(dim=1) / safe_n
+    ocy = (m * blk(oy)).sum(dim=1) / safe_n
+    ocz = (m * blk(oz)).sum(dim=1) / safe_n
+
+    rabs = torch.abs(r)[None, :]
+    keys = torch.sqrt((cx[None, :] - ocx[:, None]) ** 2
+                      + (cy[None, :] - ocy[:, None]) ** 2
+                      + (cz[None, :] - ocz[:, None]) ** 2
+                      ) - rabs - _SORT_KEY_MARGIN
+    order = torch.argsort(keys, dim=1, stable=True)
+    ks = torch.gather(keys, 1, order)
+    perm = order.to(torch.int32)
+    pad = -s % UNROLL
+    if pad:
+        perm = torch.cat([perm, torch.full((nb, pad), s, dtype=torch.int32,
+                                           device=perm.device)], dim=1)
+        ks = torch.cat([ks, torch.full((nb, pad), BIG, dtype=torch.float32,
+                                       device=ks.device)], dim=1)
+    n_chunks = (s + pad) // UNROLL
+    cmin = ks.reshape(nb, n_chunks, UNROLL).amin(dim=-1)
+    suf = torch.flip(torch.cummin(torch.flip(cmin, [1]), dim=1).values, [1])
+    suf = torch.cat([suf, torch.full((nb, 1), BIG, dtype=torch.float32,
+                                     device=suf.device)], dim=1)
+    yb = torch.stack([torch.max(cy + torch.abs(r)),    # slab top (ymax)
+                      torch.min(cy - torch.abs(r))])   # slab bottom (ymin)
+    oc = torch.stack([ocx, ocy, ocz], dim=1)
+    return perm.contiguous(), suf.contiguous(), oc.contiguous(), yb
+
+
+def ladder_points(ladder, n_chunks: int) -> list:
+    """The checkpoints the sorted kernel uses of a ``ladder``: distinct,
+    ascending, inside (0, n_chunks)."""
+    return sorted({int(c) for c in ladder if 0 < int(c) < n_chunks})
+
+
+def _check_sortstate(name: str, sortstate, nb: int, device):
+    perm, suf, oc, yb = sortstate
+    if perm.dim() != 2 or perm.shape[1] % UNROLL or perm.shape[1] == 0:
+        raise ValueError(f"{name}: perm must be (B, S_pad) with S_pad a "
+                         f"multiple of {UNROLL}; got {tuple(perm.shape)}")
+    n_chunks = perm.shape[1] // UNROLL
+    i32, f32 = torch.int32, torch.float32
+    _block_array(name, "perm", perm, i32, (nb, perm.shape[1]), device)
+    _block_array(name, "suf", suf, f32, (nb, n_chunks + 1), device)
+    _block_array(name, "oc", oc, f32, (nb, 3), device)
+    _block_array(name, "yb", yb, f32, (2,), device)
+    return n_chunks
+
+
+def segment_closest_hit_sorted_reference(rays, cx, cy, cz, r, sortstate,
+                                         t_min, rows: int = 128, active=None,
+                                         ladder: tuple = (1, 8)):
+    """Plain PyTorch version of the sorted kernel: the candidates in
+    ``perm`` order, the first least one wins, mapped back through
+    ``perm``. The kernel's early exit changes no result (every bound
+    carries slack), so the plain version has none and ``ladder`` does not
+    enter it."""
+    del ladder
+    nb = _check_blocks("closest_hit_sorted", rays, rows)
+    _check_sortstate("closest_hit_sorted", sortstate, nb, rays[0].device)
+    return _closest_over_block_lists(
+        rays, hit_table_padded(cx, cy, cz, r), sortstate[0], None, t_min,
+        rows, active)
+
+
+def segment_closest_hit_sorted(rays, cx, cy, cz, r, sortstate, t_min,
+                               rows: int = 128, active=None,
+                               ladder: tuple = (1, 8), table=None,
+                               stats=None):
+    """Distance-ordered early-exit closest hit.
+
+    sortstate: the tuple from sorted_cull_state (same rows). ladder: chunk
+    checkpoints for the staged exit (() = no checks). table: optional
+    ``hit_table_padded(cx, cy, cz, r)``. stats: optional (2,) int64 CUDA
+    tensor the kernel ADDS (chunks skipped, chunks in all), counted per
+    warp with an active lane, to -- how often the exit fires.
+    Results are identical to segment_closest_hit except on exact f32 q
+    ties between distinct spheres (sorted-order vs id-order tie winner).
+    CUDA tensors go through the hand-written kernel; CPU tensors through
+    the plain version.
+    """
+    ox = rays[0]
+    if ox.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("closest_hit_sorted: stats= is the kernel's "
+                             "counter (CUDA only)")
+        return segment_closest_hit_sorted_reference(
+            rays, cx, cy, cz, r, sortstate, t_min, rows, active, ladder)
+    name = "closest_hit_sorted"
+    shape, device, n_spheres, act = _check_launch(
+        name, rays, cx, cy, cz, r, active, MAX_SPHERES - 1)
+    nb = _check_blocks(name, rays, rows)
+    n_chunks = _check_sortstate(name, sortstate, nb, device)
+    if n_chunks * UNROLL * 20 > 227 * 1024:
+        raise ValueError(f"{name}: {n_chunks * UNROLL} sorted spheres do "
+                         "not fit a block's shared memory")
+    pts = ladder_points(ladder, n_chunks)
+    if len(pts) > MAX_LADDER:
+        raise ValueError(f"{name}: a ladder of {len(pts)} checkpoints; the "
+                         f"kernel takes at most {MAX_LADDER}")
+    if stats is not None:
+        _block_array(name, "stats", stats, torch.int64, (2,), device)
+    if table is None:
+        table = hit_table_padded(cx, cy, cz, r)
+    _check_table(name, table, n_spheres + 1, device)
+    perm, suf, oc, yb = sortstate
+    hit, t, sb = _outputs(shape, device)
+    c_ladder = (ctypes.c_int * max(len(pts), 1))(*pts)
+    fn = kernels.entry("rtw_closest_hit_sorted")
+    err = fn(c_ladder, len(pts), perm.data_ptr(), suf.data_ptr(),
+             oc.data_ptr(), yb.data_ptr(), act.data_ptr(),
+             *(p.data_ptr() for p in rays), table.data_ptr(),
+             hit.data_ptr(), t.data_ptr(), sb.data_ptr(),
+             None if stats is None else stats.data_ptr(), ox.numel(),
+             n_spheres, rows * LANES, n_chunks, float(t_min),
+             torch.cuda.current_stream(device).cuda_stream)
+    kernels.check(err, name)
+    kernels.LAUNCHES["closest_hit_sorted"] += 1
+    return hit, t, sb
+
+
+# ---------------------------------------------------------------------------
+# The regrouped-products kernel
+# ---------------------------------------------------------------------------
+
+def mxu_table(cx, cy, cz, r) -> torch.Tensor:
+    """(S, 4) f32 table (cx, cy, cz, |C|^2 - r^2) of the mxu kernel."""
+    ccr = cx * cx + cy * cy + cz * cz - r * r
+    return torch.stack([cx, cy, cz, ccr], dim=1).contiguous()
+
+
+def segment_closest_hit_mxu_reference(rays, cx, cy, cz, r, t_min,
+                                      active=None):
+    """Plain PyTorch version of the mxu kernel: the regrouped arithmetic
+    (-b = d.C - d.o, c = (|o|^2 - 2 o.C) + (|C|^2 - r^2)) elementwise over
+    (lanes, spheres) in the kernel's operation order -- no matrix product,
+    so no reduced-precision path can enter."""
+    shape = rays[0].shape
+    ox, oy, oz, dx, dy, dz = (p.reshape(-1, 1) for p in rays)
+    n = ox.shape[0]
+    tab = mxu_table(cx, cy, cz, r)
+    tx, ty, tz, ccr = (tab[None, :, k] for k in range(4))
+    t_min = _f32(t_min)
+    hit = torch.empty(n, dtype=torch.int32, device=ox.device)
+    t = torch.empty(n, dtype=torch.float32, device=ox.device)
+    sb = torch.empty(n, dtype=torch.int32, device=ox.device)
+    for lo in range(0, n, _REF_CHUNK):
+        sl = slice(lo, min(lo + _REF_CHUNK, n))
+        x, y, z = ox[sl], oy[sl], oz[sl]
+        vx, vy, vz = dx[sl], dy[sl], dz[sl]
+        a = vx * vx + vy * vy + vz * vz
+        d_o = vx * x + vy * y + vz * z
+        o_o = x * x + y * y + z * z
+        q_min = t_min * a
+        d_c = vx * tx + vy * ty + vz * tz
+        o_c = x * tx + y * ty + z * tz
+        bneg = d_c - d_o
+        c = (o_o - (o_c + o_c)) + ccr
+        sq = torch.sqrt(bneg * bneg - a * c)  # NaN when disc < 0
+        q0 = bneg - sq
+        q1 = bneg + sq
+        big = torch.full_like(q0, BIG)
+        q = torch.where(q0 > q_min, q0, torch.where(q1 > q_min, q1, big))
+        q_b, s_b = torch.min(q, dim=1)  # the first least index wins ties
+        h = q_b < BIG
+        hit[sl] = h.to(torch.int32)
+        t[sl] = torch.where(h, q_b / a[:, 0], torch.full_like(q_b, BIG))
+        sb[sl] = torch.where(h, s_b, torch.zeros_like(s_b)).to(torch.int32)
+    return _mask_inactive(hit.reshape(shape), t.reshape(shape),
+                          sb.reshape(shape), active)
+
+
+def segment_closest_hit_mxu(rays, cx, cy, cz, r, t_min, active=None,
+                            table=None):
+    """Regrouped-products closest hit; same contract as
+    segment_closest_hit up to f32 rounding on knife-edge candidates
+    (planes in, planes out; at most MXU_MAX_SPHERES spheres). table:
+    optional ``mxu_table(cx, cy, cz, r)``. CUDA tensors go through the
+    hand-written kernel; CPU tensors through the plain version.
+    """
+    n_spheres = cx.shape[0]
+    if n_spheres > MXU_MAX_SPHERES:
+        raise ValueError(f"closest_hit_mxu: {n_spheres} spheres; at most "
+                         f"{MXU_MAX_SPHERES}")
+    ox = rays[0]
+    if ox.device.type == "cpu":
+        return segment_closest_hit_mxu_reference(rays, cx, cy, cz, r, t_min,
+                                                 active)
+    name = "closest_hit_mxu"
+    shape, device, n_spheres, act = _check_launch(
+        name, rays, cx, cy, cz, r, active, MXU_MAX_SPHERES)
+    if table is None:
+        table = mxu_table(cx, cy, cz, r)
+    _check_table(name, table, n_spheres, device)
+    hit, t, sb = _outputs(shape, device)
+    fn = kernels.entry("rtw_closest_hit_mxu")
+    err = fn(act.data_ptr(), *(p.data_ptr() for p in rays),
+             table.data_ptr(), hit.data_ptr(), t.data_ptr(), sb.data_ptr(),
+             ox.numel(), n_spheres, float(t_min),
+             torch.cuda.current_stream(device).cuda_stream)
+    kernels.check(err, name)
+    kernels.LAUNCHES["closest_hit_mxu"] += 1
+    return hit, t, sb
+
+
+# ---------------------------------------------------------------------------
+# Dispatch and the segment's surface planes
+# ---------------------------------------------------------------------------
+
 def closest_hit_planar(rays, cx, cy, cz, r, t_min, active=None,
                        kernel: str = "sublane", table=None):
-    """Dispatch between the planar closest-hit kernel layouts. Only
-    "sublane" (the per-ray loop over the sphere table) is ported."""
-    if kernel != "sublane":
-        raise NotImplementedError(
-            f"hit_kernel={kernel!r} is not ported yet (ROADMAP.md, "
-            "Queue 2: the 'sorted' and 'mxu' closest-hit kernels)")
+    """Dispatch between the two whole-table closest-hit kernels: "mxu" up
+    to MXU_MAX_SPHERES spheres, else the sublane kernel (as the JAX
+    package's dispatcher). ``table`` is the chosen kernel's own
+    (``hit_table`` or ``mxu_table``). The sorted kernel needs a sort state
+    and is not dispatched here."""
+    if kernel == "sorted":
+        raise ValueError("closest_hit_planar: the sorted kernel takes a sort "
+                         "state; call segment_closest_hit_sorted")
+    if kernel not in ("sublane", "mxu"):
+        raise ValueError(f"unknown hit_kernel: {kernel!r}")
+    if kernel == "mxu" and cx.shape[0] <= MXU_MAX_SPHERES:
+        return segment_closest_hit_mxu(rays, cx, cy, cz, r, t_min,
+                                       active=active, table=table)
     return segment_closest_hit(rays, cx, cy, cz, r, t_min, active=active,
                                table=table)
+
+
+def surface_from_params(rays, params, hit_i, t_b):
+    """(hit, t) and the winner's 10 resolved param planes -> the
+    segment's surface/material planes: dict of hit (i32 0/1), t, px py pz
+    (hit point), nx ny nz (normal; a negative radius flips it inward),
+    mt (i32), ar ag ab, fz, io."""
+    cx_b, cy_b, cz_b, r_b, mt, ar, ag, ab, fz, io = params
+    ox, oy, oz, dx, dy, dz = rays
+    hit = hit_i > 0
+    t_safe = torch.where(hit, t_b, torch.ones_like(t_b))
+    px = ox + t_safe * dx
+    py = oy + t_safe * dy
+    pz = oz + t_safe * dz
+    inv_r = 1.0 / torch.where(r_b != 0.0, r_b, torch.ones_like(r_b))
+    return {
+        "hit": hit_i, "t": t_b, "px": px, "py": py, "pz": pz,
+        "nx": (px - cx_b) * inv_r, "ny": (py - cy_b) * inv_r,
+        "nz": (pz - cz_b) * inv_r,
+        "mt": mt, "ar": ar, "ag": ag,
+        "ab": ab, "fz": fz, "io": io,
+    }
+
+
+def resolve_segment(rays, sphere_params, hit_i, t_b, s_b):
+    """Winning (hit, t, idx) -> full surface/material planes (the dict of
+    ``surface_from_params``)."""
+    return surface_from_params(rays, resolve_params(s_b, sphere_params),
+                               hit_i, t_b)
+
+
+def trace_segment(rays, sphere_params, t_min, active=None,
+                  group_params=None, hit_kernel: str = "sublane",
+                  table=None):
+    """One trace segment over planar ray state: closest hit, then the
+    winner's surface and material planes (``resolve_segment``).
+
+    rays: 6 planar (R, 128) f32 planes; sphere_params: the 10-tuple of
+    ``sphere_params_from_scene``; active: optional (R, 128) bool/i32
+    plane; hit_kernel: "sublane" or "mxu"; table: the kernel's table.
+    group_params (the JAX package's sphere-group culling) is refused.
+    """
+    if group_params is not None:
+        raise NotImplementedError(
+            "trace_segment(group_params=...) is not ported yet (ROADMAP.md, "
+            "Queue 2, kernel 6: the sphere-group closest-hit kernel)")
+    cx, cy, cz, r = sphere_params[:4]
+    hit_i, t_b, s_b = closest_hit_planar(rays, cx, cy, cz, r, t_min,
+                                         active=active, kernel=hit_kernel,
+                                         table=table)
+    return resolve_segment(rays, sphere_params, hit_i, t_b, s_b)
+
+
+def trace_segment_list(rays, sphere_params, counts, lists, t_min,
+                       rows: int = 128, active=None, table=None):
+    """trace_segment driven by per-block candidate lists (ops/cull.py).
+
+    Same outputs as trace_segment; winners are bit-identical whenever the
+    lists are conservative (they contain every possible closest hit).
+    """
+    cx, cy, cz, r = sphere_params[:4]
+    hit_i, t_b, s_b = segment_closest_hit_list(
+        rays, cx, cy, cz, r, counts, lists, t_min, rows=rows, active=active,
+        table=table)
+    return resolve_segment(rays, sphere_params, hit_i, t_b, s_b)
+
+
+# ---------------------------------------------------------------------------
+# State carried across from numpy
+# ---------------------------------------------------------------------------
+
+def sortstate_from_numpy(perm, suf, oc, yb, device=None) -> tuple:
+    """A sort state as numpy arrays (the JAX package's
+    ``sorted_cull_state``) -> the port's tuple of tensors on ``device``
+    (None = the CUDA card)."""
+    device = resolve_device(device)
+    return (torch.from_numpy(np.array(perm, dtype=np.int32)).to(device),
+            *(torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+              for x in (suf, oc, yb)))
+
+
+def cull_lists_from_numpy(counts, lists, device=None) -> tuple:
+    """(counts, lists) as numpy arrays (the JAX package's
+    ``cull.candidate_lists``) -> i32 tensors on ``device`` (None = the
+    CUDA card)."""
+    device = resolve_device(device)
+    return tuple(torch.from_numpy(np.array(x, dtype=np.int32)).to(device)
+                 for x in (counts, lists))

@@ -26,6 +26,12 @@ from raytracinginoneweekend_tpu_torch import cli as pcli
 from raytracinginoneweekend_tpu_torch import kernels
 from raytracinginoneweekend_tpu_torch.io.image import read_ppm
 
+# The suite runs in several worker processes that share the machine's cores.
+# PyTorch's default, one intra-op thread per core in EVERY worker,
+# oversubscribes them (measured: the same small frames take five times as
+# long with six workers); the planes here are small, two threads are plenty.
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "raytracinginoneweekend_tpu_torch")
 FLAGS = ["--scene", "simple-cuda", "--width", "32", "--height", "24",
@@ -109,17 +115,84 @@ def test_cli_device_default_is_cuda_and_unported_engines_raise(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             pcli.main(["fit", "--width", "8", "--height", "8", "--steps",
                        "1"])
-    for engine in ("wavefront-dual", "wavefront-sharded",
-                   "wavefront-dual-sharded"):
+    for engine in ("wavefront-sharded", "wavefront-dual-sharded"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pcli.main(["render", *small, "--device", "cpu", "--engine",
                        engine])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pcli.main(["render", *small, "--device", "cpu", "--fusion",
+                   "bounce"])
     with pytest.raises(SystemExit):  # not ported: no such subcommand/flag
         pcli.main(["serve"])
     with pytest.raises(SystemExit):
         pcli.main(["render", "--via", "/tmp/sock"])
     with pytest.raises(SystemExit):
         pcli.main(["fit", "--via", "/tmp/sock"])
+
+
+HUGE_FLAGS = ["--scene", "huge", "--width", "48", "--height", "32", "--spp",
+              "4", "--depth", "6"]
+
+
+def test_render_dual_cpu_matches_jax_cli(tmp_path, capsys):
+    flags = [*HUGE_FLAGS, "--engine", "wavefront-dual", "--pool-size",
+             "24576"]
+    ours, theirs = str(tmp_path / "port.ppm"), str(tmp_path / "jax.ppm")
+    assert pcli.main(["render", *flags, "--device", "cpu", "--stats",
+                      "--out", ours]) == 0
+    met = json.loads(capsys.readouterr().err.strip().splitlines()[-1])
+    assert set(met) == {"iterations", "issue_lane_iters",
+                        "secondary_active_lane_iters",
+                        "primary_blocked_lane_iters",
+                        "primary_candidate_total", "handoffs", "p_lanes",
+                        "s_lanes"}
+    assert met["issue_lane_iters"] == 48 * 32 * 4
+    assert (met["p_lanes"], met["s_lanes"]) == (8192, 16384)
+    assert jcli.main(["render", *flags, "--out", theirs]) == 0
+    got, want = read_ppm(ours), jread_ppm(theirs)
+    assert got.shape == want.shape == (32, 48, 3)
+    within = (np.abs(got.astype(int) - want.astype(int)) <= 1).all(axis=-1)
+    assert within.mean() >= 0.99, within.mean()
+    assert got.std() > 10
+
+
+@pytest.mark.parametrize("flags", [
+    ["--hit-kernel", "sorted", "--ownership", "tile"],
+    ["--hit-kernel", "sorted"], ["--ownership", "tile"],
+    ["--fusion", "off"],
+], ids=["sorted_tile", "sorted", "tile", "off"])
+def test_render_variant_flags_write_the_default_image(tmp_path, flags):
+    """--hit-kernel sorted, --ownership tile and --fusion off change how
+    the frame is traced, not one bit of it."""
+    base, out = str(tmp_path / "base.ppm"), str(tmp_path / "variant.ppm")
+    common = [*HUGE_FLAGS, "--pool-size", "2048", "--device", "cpu"]
+    assert pcli.main(["render", *common, "--out", base]) == 0
+    assert pcli.main(["render", *common, *flags, "--out", out]) == 0
+    np.testing.assert_array_equal(read_ppm(out), read_ppm(base))
+
+
+def test_render_mxu_flag_matches_jax_cli(tmp_path):
+    flags = [*HUGE_FLAGS, "--pool-size", "2048", "--hit-kernel", "mxu"]
+    ours, theirs = str(tmp_path / "port.ppm"), str(tmp_path / "jax.ppm")
+    assert pcli.main(["render", *flags, "--device", "cpu", "--out",
+                      ours]) == 0
+    assert jcli.main(["render", *flags, "--out", theirs]) == 0
+    got, want = read_ppm(ours), jread_ppm(theirs)
+    within = (np.abs(got.astype(int) - want.astype(int)) <= 1).all(axis=-1)
+    assert within.mean() >= 0.99, within.mean()
+
+
+def test_options_take_the_engine_flags():
+    opts = pcli._options("default", fusion="off", hit_kernel="sorted",
+                         ownership="tile")
+    assert (opts.mega, opts.hit_kernel, opts.ownership) == \
+        ("off", "sorted", "tile")
+    assert opts == dataclasses.replace(
+        pcli._options("default"), mega="off", hit_kernel="sorted",
+        ownership="tile")
+    want = jcli._options("default", "off", False, "sorted", "tile", None)
+    assert (want.mega, want.hit_kernel, want.ownership) == \
+        ("off", "sorted", "tile")
 
 
 FIT_FLAGS = ["--scene", "simple-cuda", "--width", "24", "--height", "16",
@@ -275,8 +348,9 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch, tmp_path):
                       "simple-cuda", "--width", "8", "--height", "8",
                       "--spp", "1", "--depth", "2", "--device", "cpu",
                       "--out", str(tmp_path / "tiled.ppm")]) == 0
-    assert kernels.LAUNCHES == {"closest_hit": 0, "shade_regen": 0,
-                                "intersect": 0}
+    assert kernels.LAUNCHES == dict.fromkeys(
+        ("closest_hit", "shade_regen", "intersect", "closest_hit_list",
+         "closest_hit_sorted", "closest_hit_mxu"), 0)
     assert not os.path.exists(os.path.join(kernels.BUILD_DIR, "lock"))
 
 

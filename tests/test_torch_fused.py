@@ -25,6 +25,7 @@ contraction of multiply-adds:
 
 import dataclasses
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -39,10 +40,17 @@ from raytracinginoneweekend_tpu.ops import pallas_fused as jfused
 from raytracinginoneweekend_tpu.ops import pallas_segment as jseg
 from raytracinginoneweekend_tpu_torch.models import camera as pcamera
 from raytracinginoneweekend_tpu_torch.models import scene as pscene
+from raytracinginoneweekend_tpu_torch.ops import cull as pcull
 from raytracinginoneweekend_tpu_torch.ops import cuda_fused as pfused
 from raytracinginoneweekend_tpu_torch.ops import cuda_segment as pseg
 from raytracinginoneweekend_tpu_torch.ops import threefry as ptf
 from raytracinginoneweekend_tpu_torch.ops import wavefront as pwave
+
+# The suite runs in several worker processes that share the machine's cores.
+# PyTorch's default, one intra-op thread per core in EVERY worker,
+# oversubscribes them (measured: the same small frames take five times as
+# long with six workers); the planes here are small, two threads are plenty.
+torch.set_num_threads(2)
 
 ROWS = 8
 P = ROWS * 128
@@ -82,7 +90,8 @@ def _compare(got, want, n_slots, what):
 class Rig:
     """One configuration: both packages' scene, camera and step function."""
 
-    def __init__(self, scene_name, camera_name, mode, jopt, n_slots):
+    def __init__(self, scene_name, camera_name, mode, jopt, n_slots,
+                 tile=False):
         jsc = {"huge": lambda: jscene.huge_scene(0),
                "simple-cuda": jscene.simple_scene_cuda,
                "simple-cpu": jscene.simple_scene_cpu}[scene_name]()
@@ -105,6 +114,22 @@ class Rig:
             n_slots=n_slots, stride=P, camera_mode=mode,
             rr_terminate=jopt.rr_terminate, rr_start=1,
             rr_qmin=jopt.rr_qmin, rr_scale=1.0, sampling=jopt.sampling)
+        self.first = np.arange(P, dtype=np.int32).reshape(ROWS, 128)
+        self.stride = P
+        if tile:
+            # TILE ownership: two ownership blocks of 512 lanes, each with
+            # a contiguous range of T_b task ids over the 2 x 1 tile grid
+            # (48 wide: a third of the virtual pixels lie outside the
+            # image). The decomposition is ops/wavefront.build_engine's.
+            tiles_x, _, n_vp = pcull.virtual_grid(W, H)
+            own_bl = P // 2
+            align = own_bl * TPP // math.gcd(own_bl, TPP)
+            t_b = -(-(n_vp * TPP) // (2 * align)) * align
+            self.kw.update(own_bl=own_bl, t_b=t_b, tiles_x=tiles_x,
+                           n_tasks=2 * t_b, stride=own_bl)
+            self.first = pwave.first_tasks(P, "cpu", own_bl, t_b).numpy()
+            self.stride = own_bl
+        self.pkw = dict(self.kw, worker_base=0) if tile else self.kw
         self.jcamvec = jfused.pack_camera(jcam)
         self.pcamvec = pfused.pack_camera(pcam)
         np.testing.assert_array_equal(self.pcamvec.numpy(),
@@ -123,7 +148,7 @@ class Rig:
         st = pwave.lane_state_to_numpy(
             pwave.initial_lane_state(P, self.n_slots, "cpu"))
         st = [np.array(a) for a in st]
-        st[0] += P
+        st[0] = self.first + self.stride
         return st
 
     def trace(self, state):
@@ -146,7 +171,7 @@ class Rig:
         pstate = pwave.lane_state_from_numpy(state, device="cpu")
         pseg_in = tuple(torch.from_numpy(np.array(a)) for a in seg)
         got = pfused.shade_regen(pstate, pseg_in, self.table, self.pcamvec,
-                                 self.base_words, **self.kw)
+                                 self.base_words, **self.pkw)
         return got, want
 
     def run(self, what):
@@ -181,6 +206,9 @@ CONFIGS = {
     "cpu_reference_cpu": ("simple-cpu", "cpu", "cpu",
                           jconfig.REFERENCE_CPU, 2),
     "pinhole_one_slot": ("huge", "cpu", "pinhole", jconfig.DEFAULT, 1),
+    "tile_ownership": ("huge", "cpu", "thinlens", jconfig.DEFAULT, 2, True),
+    "tile_ownership_stratified_rr": ("huge", "cpu", "thinlens", STRAT_RR, 2,
+                                     True),
 }
 
 
@@ -194,7 +222,13 @@ def test_shade_regen_matches_jax_along_a_trajectory(name):
     deepest = max(int(s[13].max()) for s in states)
     assert deepest >= (1 if CONFIGS[name][2] == "cpu" else 2)
     assert (last[19] >= 0).any()
-    assert (last[0] >= np.arange(P).reshape(ROWS, 128) + 3 * P).any()
+    assert (last[0] >= rig.first + 3 * rig.stride).any()
+    if rig.stride != P:
+        # tile ownership: no lane runs past its block's range, and some
+        # lane traced a virtual pixel outside the image as pixel 0
+        end = (rig.first // rig.kw["t_b"] + 1) * rig.kw["t_b"]
+        assert (last[0] <= end + rig.stride).all()
+        assert any((s[1] >= 0).any() for s in states)
 
 
 def test_shade_regen_with_every_slot_full():
@@ -238,6 +272,9 @@ def test_lane_state_round_trip_and_errors():
     with pytest.raises(ValueError, match="camera mode"):
         pfused.shade_regen(pstate, seg, rig.table, rig.pcamvec, (0, 1),
                            **dict(rig.kw, camera_mode="fisheye"))
+    with pytest.raises(ValueError, match="tile ownership"):
+        pfused.shade_regen(pstate, seg, rig.table, rig.pcamvec, (0, 1),
+                           **dict(rig.kw, own_bl=512, t_b=2048, tiles_x=7))
     with pytest.raises(ValueError, match="CUDA only"):
         pfused.shade_regen(pstate, seg, rig.table, rig.pcamvec, (0, 1),
                            out=pstate, **rig.kw)

@@ -31,6 +31,12 @@ from raytracinginoneweekend_tpu.ops import pallas_segment as jseg
 from raytracinginoneweekend_tpu_torch.models import scene as pscene
 from raytracinginoneweekend_tpu_torch.ops import cuda_segment as pseg
 
+# The suite runs in several worker processes that share the machine's cores.
+# PyTorch's default, one intra-op thread per core in EVERY worker,
+# oversubscribes them (measured: the same small frames take five times as
+# long with six workers); the planes here are small, two threads are plenty.
+torch.set_num_threads(2)
+
 R = 32
 N = R * 128
 T_MIN = 0.008
@@ -181,11 +187,16 @@ def test_resolve_params_bit_exact():
 
 
 def test_unported_kernel_layouts_raise():
+    """What is still refused: the sphere-group kernel. The mxu and sorted
+    layouts are carried (tests/test_torch_segment_variants.py); the sorted
+    kernel needs a sort state, so the dispatcher points to its wrapper."""
     o, d, _ = _rays("simple")
     rays = tuple(torch.from_numpy(x.copy()) for x in (*o, *d))
     pp = pseg.sphere_params_from_scene(pscene.simple_scene_cuda("cpu"))
-    for kernel in ("mxu", "sorted"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pseg.closest_hit_planar(rays, *pp[:4], T_MIN, kernel=kernel)
-    got = pseg.closest_hit_planar(rays, *pp[:4], T_MIN)
-    assert got[0].shape == (R, 128)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pseg.trace_segment(rays, pp, T_MIN, group_params=(None,) * 4)
+    with pytest.raises(ValueError, match="segment_closest_hit_sorted"):
+        pseg.closest_hit_planar(rays, *pp[:4], T_MIN, kernel="sorted")
+    for kernel in ("sublane", "mxu"):
+        got = pseg.closest_hit_planar(rays, *pp[:4], T_MIN, kernel=kernel)
+        assert got[0].shape == (R, 128)

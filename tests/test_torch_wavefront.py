@@ -18,6 +18,7 @@ import dataclasses
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -31,6 +32,12 @@ from raytracinginoneweekend_tpu_torch import golden
 from raytracinginoneweekend_tpu_torch.models import camera as pcamera
 from raytracinginoneweekend_tpu_torch.models import scene as pscene
 from raytracinginoneweekend_tpu_torch.ops import wavefront as pwave
+
+# The suite runs in several worker processes that share the machine's cores.
+# PyTorch's default, one intra-op thread per core in EVERY worker,
+# oversubscribes them (measured: the same small frames take five times as
+# long with six workers); the planes here are small, two threads are plenty.
+torch.set_num_threads(2)
 
 SCENES = {
     "simple-cuda": (jscene.simple_scene_cuda,
@@ -198,11 +205,7 @@ def test_ray_id_overflow_raises():
 
 
 UNPORTED = {
-    "mega_off": dict(options=rt.TraceOptions(mega="off")),
     "mega_bounce": dict(options=rt.TraceOptions(mega="bounce")),
-    "hit_kernel_mxu": dict(options=rt.TraceOptions(hit_kernel="mxu")),
-    "hit_kernel_sorted": dict(options=rt.TraceOptions(hit_kernel="sorted")),
-    "ownership_tile": dict(options=rt.TraceOptions(ownership="tile")),
     "resolve_split": dict(options=rt.TraceOptions(resolve="split")),
     "resolve_f32": dict(options=rt.TraceOptions(resolve="f32")),
     "reserve_frac": dict(reserve_frac=0.1),
@@ -215,6 +218,209 @@ UNPORTED = {
 def test_unported_options_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _tiny(**UNPORTED[name])
+
+
+@pytest.mark.parametrize("changes, match", [
+    (dict(rr_terminate=True), "rr_terminate"),
+    (dict(ownership="tile"), "ownership='tile'"),
+    (dict(hit_kernel="sorted"), "hit_kernel='sorted'"),
+], ids=["rr", "tile", "sorted"])
+def test_whole_bounce_combinations_keep_the_jax_errors(changes, match):
+    """What the JAX engine refuses with a ValueError under mega='bounce'
+    is refused with the same error here, before the not-ported notice."""
+    for mod, fn in ((rt, _tiny), (jconfig, _tiny_jax)):
+        with pytest.raises(ValueError, match=match):
+            fn(options=mod.TraceOptions(mega="bounce", **changes))
+
+
+def _tiny_jax(**kw):
+    args = dict(width=8, height=8, spp=1, max_depth=2,
+                camera_mode="thinlens", options=jconfig.DEFAULT)
+    args.update(kw)
+    return jwave.render_wavefront(
+        jscene.simple_scene_cuda(), jcamera.reference_cuda_camera(8, 8),
+        jax.random.key(0), **args)
+
+
+# ---------------------------------------------------------------------------
+# The coherent-ray variants of the single pool: fusion level, closest-hit
+# kernel, task ownership
+# ---------------------------------------------------------------------------
+
+VARIANTS = {
+    "off": (("mega", "off"),),
+    "tile": (("ownership", "tile"),),
+    "sorted": (("hit_kernel", "sorted"),),
+    "sorted_tile": (("hit_kernel", "sorted"), ("ownership", "tile")),
+    "sorted_tile_rows8_no_ladder": (
+        ("hit_kernel", "sorted"), ("ownership", "tile"), ("sorted_rows", 8),
+        ("sorted_ladder", ())),
+    "off_tile": (("mega", "off"), ("ownership", "tile")),
+    "off_sorted_tile": (("mega", "off"), ("hit_kernel", "sorted"),
+                        ("ownership", "tile")),
+}
+VARIANT_FRAMES = {
+    "huge": ("huge", "cpu", "default", "thinlens", 36, 20, 4, 6),
+    "simple": ("simple-cuda", "cpu", "default", "thinlens", 40, 24, 4, 6),
+    # two tasks per pixel (20 = 16 + 4 samples): the fold sums a pixel's
+    # tasks in the same order under either ownership
+    "simple_spp20": ("simple-cuda", "cuda", "default", "thinlens", 16, 12,
+                     20, 4),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _port_frame(frame, changes=(), stats=False, pool_size=2048):
+    return _render_port(*VARIANT_FRAMES[frame], changes=changes, stats=stats,
+                        pool_size=pool_size)
+
+
+@pytest.mark.parametrize("frame", sorted(VARIANT_FRAMES))
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_variant_frames_bit_equal_to_default(variant, frame):
+    """Tile ownership, the sorted kernel and the unfused step move tasks
+    between lanes, reorder the sphere loop and split the step, but trace
+    every (pixel, sample) with the same arithmetic and sum a pixel's tasks
+    in the same order: BIT-equal frames, as the JAX package demands of
+    itself (its test_tile_ownership_images_bit_identical)."""
+    np.testing.assert_array_equal(_port_frame(frame, VARIANTS[variant]),
+                                  _port_frame(frame))
+
+
+def test_wall_scene_variants_bit_equal():
+    """The depth-bounded wall scene (the JAX package's demonstration
+    workload for sorted + tile), pinhole camera."""
+    scene = pscene.wall_scene(0, device="cpu")
+    w, h = 36, 24
+    cam = pcamera.make_camera((0.0, 11.0, 4.0), (0.0, 11.0, 0.0), (0, 1, 0),
+                              w / h, 60.0, 0.0, 4.0, device="cpu")
+    kw = dict(width=w, height=h, spp=4, max_depth=4, camera_mode="pinhole",
+              pool_size=2048, device="cpu")
+    base = rt.render_wavefront(scene, cam, rt.key_words(1),
+                               options=rt.DEFAULT, **kw).numpy()
+    assert np.isfinite(base).all() and base.max() > 0.05
+    for hk, own in (("sublane", "tile"), ("sorted", "strided"),
+                    ("sorted", "tile")):
+        o = dataclasses.replace(rt.DEFAULT, hit_kernel=hk, ownership=own)
+        got = rt.render_wavefront(scene, cam, rt.key_words(1), options=o,
+                                  **kw).numpy()
+        np.testing.assert_array_equal(base, got, err_msg=f"{hk}/{own}")
+
+
+@pytest.mark.parametrize("variant", ["off", "sorted_tile", "off_sorted_tile"])
+def test_variant_frame_matches_jax(variant):
+    args = VARIANT_FRAMES["huge"]
+    want = _render_jax(*args, pool_size=2048, changes=VARIANTS[variant])
+    cmp = golden.compare_frames(_port_frame("huge", VARIANTS[variant]), want,
+                                atol=5e-4)
+    assert cmp["ok"], cmp
+
+
+@pytest.mark.parametrize("mega", ["fused", "off"])
+def test_mxu_frame_under_the_one_percent_rule(mega):
+    """The mxu kernel regroups the dot products, so single knife-edge
+    candidates round the other way: at most 1% of pixels more than 1e-3
+    (relative, floor 1e-3) away from the default frame -- the JAX
+    package's own rule -- and within the frame rule of the JAX mxu
+    frame."""
+    changes = (("hit_kernel", "mxu"), ("mega", mega))
+    a = _port_frame("huge", (("mega", mega),))
+    b = _port_frame("huge", changes)
+    err = np.abs(a - b) / (np.abs(a) + 1e-3)
+    assert (err.max(axis=-1) > 1e-3).mean() <= 0.01
+    want = _render_jax(*VARIANT_FRAMES["huge"], pool_size=2048,
+                       changes=changes)
+    cmp = golden.compare_frames(b, want, atol=5e-4)
+    assert cmp["ok"], cmp
+
+
+@pytest.mark.parametrize("variant", ["off", "tile", "sorted_tile"])
+def test_variant_stats_match_jax(variant):
+    args = VARIANT_FRAMES["huge"]
+    _w, wstats = _render_jax(*args, pool_size=2048, stats=True,
+                             changes=VARIANTS[variant])
+    got, gstats = _port_frame("huge", VARIANTS[variant], stats=True)
+    np.testing.assert_array_equal(got, _port_frame("huge"))
+    assert set(gstats) == {"iters", "segments", "lanes"}
+    assert gstats["iters"] == wstats["iters"]
+    assert gstats["lanes"] == wstats["lanes"]
+    assert abs(gstats["segments"] - wstats["segments"]) \
+        <= 5e-3 * wstats["segments"]
+
+
+def test_tile_ownership_decomposition():
+    """own_bl, T_b, the padded task space and the first task ids, as the
+    JAX engine works them out (ops/wavefront.py there, :187-210, :259-264)."""
+    scene = pscene.simple_scene_cuda("cpu")
+    cam = pcamera.reference_cuda_camera(50, 34, "cpu")
+    eng = pwave.build_engine(
+        scene, cam, rt.key_words(0), width=50, height=34, spp=20,
+        max_depth=4, camera_mode="thinlens",
+        options=rt.TraceOptions(ownership="tile", sorted_rows=16),
+        pool_size=16384, device="cpu")
+    n_vp = 64 * 64                      # 2 x 2 tiles of 32 x 32
+    assert (eng.lanes, eng.tpp, eng.own_bl) == (16384, 2, 2048)
+    assert eng.own_tb % eng.own_bl == 0 and eng.own_tb % eng.tpp == 0
+    assert eng.n_tasks == 8 * eng.own_tb >= n_vp * 2
+    assert eng.n_tasks - n_vp * 2 < 8 * eng.own_bl  # less than a round over
+    assert eng.n_k == eng.own_tb // eng.own_bl and eng.stride == eng.own_bl
+    first = pwave.first_tasks(eng.lanes, "cpu", eng.own_bl, eng.own_tb)
+    lane = np.arange(eng.lanes)
+    np.testing.assert_array_equal(
+        first.numpy().ravel(),
+        (lane // 2048) * eng.own_tb + lane % 2048)
+    # every task id has exactly one owner
+    ids = (first.numpy().ravel()[None, :]
+           + np.arange(eng.n_k)[:, None] * eng.stride)
+    assert sorted(ids.ravel().tolist()) == list(range(eng.n_tasks))
+    with pytest.raises(ValueError, match="cull blocks"):
+        pwave.build_engine(
+            scene, cam, rt.key_words(0), width=50, height=34, spp=20,
+            max_depth=4, camera_mode="thinlens",
+            options=rt.TraceOptions(hit_kernel="sorted", sorted_rows=48),
+            pool_size=8192, device="cpu")
+
+
+def test_one_unfused_iteration_state_for_state():
+    """One mega="off" iteration against the JAX package. Its unrotated
+    step is regen-then-trace; the JAX package exposes the rotated fused
+    step (trace-then-regen), so from one mid-frame state s:
+    regen(off_step(s)) must equal fused_step(regen(s)) -- the JAX Pallas
+    shade_regen (interpret mode) on the right, the port's plain PyTorch on
+    the left. Tolerance: tests/test_torch_fused.py's."""
+    from raytracinginoneweekend_tpu.ops import pallas_fused as jfused
+    from raytracinginoneweekend_tpu.ops import pallas_segment as jseg
+    from test_torch_fused import _compare
+
+    w, h, spp, depth = 48, 32, 6, 6
+    opts = rt.TraceOptions(mega="off")
+    scene = pscene.huge_scene(0, "cpu")
+    cam = pcamera.reference_cpu_camera(w, h, "cpu")
+    eng = pwave.build_engine(scene, cam, rt.key_words(7), width=w, height=h,
+                             spp=spp, max_depth=depth,
+                             camera_mode="thinlens", options=opts,
+                             pool_size=1024, task_samples=4, device="cpu")
+    state = pwave.engine_prologue(eng)
+    assert not (state[3] > 0).any()   # the unrotated step starts all idle
+    for _ in range(4):
+        state = pwave.engine_step(eng, state)
+    left = pwave.engine_regen(eng, pwave.engine_step(eng, state))
+
+    jsc, jcam = jscene.huge_scene(0), jcamera.reference_cpu_camera(w, h)
+    jp = jseg.sphere_params_from_scene(jsc)
+    mid = pwave.engine_regen(eng, state)
+    jstate = tuple(jnp.asarray(a) for a in pwave.lane_state_to_numpy(mid))
+    # both sides shade the SAME (hit, t, sphere) -- the port's; the closest
+    # hit itself is held against JAX's in tests/test_torch_segment.py
+    hit, t, sb = (jnp.asarray(x.numpy())
+                  for x in pwave.engine_closest_hit(eng, mid))
+    kw = {k: v for k, v in eng.step_kw.items() if k != "own_bl"}
+    want = jfused.shade_regen(
+        jstate, (hit, t), jseg.resolve_params(sb, jp),
+        jfused.pack_camera(jcam), jnp.asarray(eng.base_words, jnp.uint32),
+        rows=8, **kw)
+    _compare(left, want, eng.n_slots, "unfused step")
+    assert (np.asarray(want[13]) >= 2).any()  # rays were mid-path
 
 
 def test_bad_deposit_and_ledger_cap():
