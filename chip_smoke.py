@@ -89,6 +89,22 @@ Phases (one JSON object per line on standard output):
                    sorted``; ``--hit-kernel mxu``; ``--fusion off`` (at
                    2^20 lanes); the sorted and mxu kernels again at 2^20
                    lanes.
+  grouped_path     the sphere-group kernel (closest_hit_grouped) on the
+                   rays it was designed for: the camera rays of the full
+                   frame's first pool (2^20 lanes, tile ownership) and a
+                   mid-frame state of that frame, each through
+                   trace_segment(group_params=...) with the launch counts
+                   read around the two calls; against its plain version,
+                   against closest_hit on the unsorted scene, its own count
+                   of the group-tests it skipped beside what a lane-by-lane
+                   cull could skip, and times beside closest_hit's.
+  mega_path        the whole-bounce kernel (mega_bounce) against its plain
+                   version on the main frame's mid-frame state (32768 and
+                   2^20 lanes); mega="bounce" frames at 240x160 against the
+                   default frame, the unfused step and the plain frames;
+                   the full-width frame through ``render --fusion bounce
+                   --pool-size 1048576`` with the launch counts read around
+                   it, then in the process beside the default frame.
   train_path       the training path at full width -- huge scene, 1200x800
                    camera, thin lens, default options with
                    intersect="pallas": the target by render.render (tiled
@@ -99,14 +115,23 @@ Phases (one JSON object per line on standard output):
                    and ten timed ones, with the launch counts read around
                    it; then one step split into forward, backward and
                    update, and one step of engine "tiled" on the same
-                   batch.
+                   batch. Then the same batch shape at depth 50, where
+                   "auto" resolves to the regenerative AD pool
+                   (ops/wavefront_ad.py): a fit of ten timed steps, a step
+                   of the pool and of the planar engine taken apart, the
+                   batch's iteration budget and a flat-budget step, and the
+                   pool's pixels and gradients against the planar engine's.
   cli_fit          ``fit`` through the CLI on the small scene (200x112,
-                   20 steps, a checkpoint written, reloaded and resumed).
+                   20 steps, a checkpoint written, reloaded and resumed),
+                   then once more with --rr-terminate at the CLI's depth
+                   32, where --ad-engine auto is the regenerative AD pool.
 Then the ``kernels`` line (``launches`` from the main path's run for
 closest_hit and shade_regen, from the coherent path's full-width frames
-for closest_hit_list, closest_hit_sorted and closest_hit_mxu, and from the
-training path's for intersect, ``launches_train_path`` beside it, every
-other number measured in this run), the card's name and power limit as
+for closest_hit_list, closest_hit_sorted and closest_hit_mxu, from the
+training path's for intersect, from the grouped path's two calls for
+closest_hit_grouped and from the full-width --fusion bounce frame for
+mega_bounce, ``launches_train_path`` beside it, every other number
+measured in this run), the card's name and power limit as
 ``nvidia-smi`` gives them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -146,6 +171,28 @@ Tolerances, and why:
                 1e-6: kernel and plain version do the same IEEE float32
                 operations in the same order (ties keep the earliest
                 sphere in both).
+  closest_hit_grouped
+                bit-equal with its plain version (the t-space loop over the
+                sorted table without the cull, which is conservative).
+                Against closest_hit on the unsorted scene the JAX package's
+                own terms (tests/test_pallas_intersect.py): the same hit on
+                every camera ray and on all but 1e-4 of the mid-frame lanes
+                (the t-space window t > t_min and the q-space one of kernel
+                1 round apart at a restart's t_min knife edge), on the lanes
+                that hit the same sphere t within rtol 2e-4 / atol 1e-3 and
+                the same material.
+  mega_bounce   keep and depth equal on every lane; the float planes rtol
+                1e-5 / atol 1e-6 but for at most 1e-4 of lanes:
+                shade_regen's class (sinf/cosf of the kernel's and of
+                PyTorch's builds may differ by an ulp). Its frames: against
+                the default and the unfused frames the frame rule; the
+                plain whole-bounce frame bit-equal to the plain unfused one
+                (the same arithmetic).
+  AD pool       pixels against the planar engine (the same draws) rtol
+                1e-4 / atol 2e-5, the JAX package's own tolerance between
+                the two engines; gradients by the render_loss rule below
+                with the pool in the planar engine's place and the planar
+                engine in the tiled one's.
   gradients     closest-hit Functions against plain autograd: per input,
                 max |difference| <= 2e-3 of the largest |gradient|, with
                 the cotangent zeroed on grazing rays (|cos| of the angle
@@ -218,7 +265,8 @@ import sys
 import time
 
 PHASES = ("kernels", "grad_vs_plain", "frame_vs_plain", "frame_vs_golden",
-          "main_path", "coherent_path", "train_path", "cli_fit")
+          "main_path", "coherent_path", "grouped_path", "mega_path",
+          "train_path", "cli_fit")
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores and HBM bandwidth. The bounds below are stated against them.
@@ -240,6 +288,10 @@ SR_FLOPS_PER_LANE = 400
 IX_FLOPS_PER_SPHERE = 32
 # bytes per ray: origin and direction in (24), t, index and hit flag out (9)
 IX_BYTES_PER_RAY = 33
+# closest_hit_grouped: float operations per lane and group for the bound
+# test (3 sub, 5 for b, 6 for c, 3 for the discriminant, 3 compares, 2
+# logic); each tested sphere costs intersect's IX_FLOPS_PER_SPHERE.
+GROUP_TEST_FLOPS = 20
 # closest_hit_mxu: float operations per lane and sphere (10 for d.C and o.C,
 # 1 for -b, 3 for c, 3 for the discriminant, sqrt, 2 roots, 2 window compares
 # + 2 selects, 1 compare + 2 selects for the min).
@@ -259,6 +311,7 @@ TRAIN = dict(width=1200, height=800, target_spp=8, depth=16,
              batch_pixels=16384, spp=8, warmup_steps=1, timed_steps=10,
              lr=1e-2, perturb=0.1)  # the CLI's default perturbation
 GRAD = dict(width=240, height=160, spp=2, depth=8, rays=32768)
+AD_DEPTH = 50  # the regenerative AD pool's flagship depth (train_path)
 CLI_FIT = dict(width=200, height=112, steps=20)
 
 
@@ -1439,11 +1492,11 @@ def to_float64(scene, cam, params):
 
 
 def engine_gradients_raw(torch, rt, params, scene, cam, target, ids, key,
-                         **kw):
-    """render_loss gradients of the planar engine, the tiled engine and the
-    float64 witness (the tiled engine in float64) on the pixels where the
-    three runs trace the same paths -> ({run: {leaf: gradient}}, counts of
-    the pixels set aside).
+                         engines=("planar", "tiled"), **kw):
+    """render_loss gradients of two float32 engines (the planar engine and
+    the tiled engine, or ``engines``) and the float64 witness (the tiled
+    engine in float64) on the pixels where the three runs trace the same
+    paths -> ({run: {leaf: gradient}}, counts of the pixels set aside).
 
     A path in a thousand crosses a t_min or a Schlick knife edge in one
     run only and then is another path; the renderer's own frame rule sets
@@ -1463,8 +1516,8 @@ def engine_gradients_raw(torch, rt, params, scene, cam, target, ids, key,
     from raytracinginoneweekend_tpu_torch.optim import inverse
 
     held = {k: v.detach() for k, v in params.items()}
-    runs = {"planar": ("planar", scene, cam, held),
-            "tiled": ("tiled", scene, cam, held),
+    ea, eb = engines
+    runs = {ea: (ea, scene, cam, held), eb: (eb, scene, cam, held),
             "witness": ("tiled", *to_float64(scene, cam, held))}
 
     def frames(names, **leaves):
@@ -1478,12 +1531,11 @@ def engine_gradients_raw(torch, rt, params, scene, cam, target, ids, key,
         return torch.isclose(a, b, rtol=1e-4, atol=3e-5).all(dim=-1)
 
     px = frames(runs)
-    white = frames(("planar", "tiled"),
-                   albedo=torch.ones_like(scene.albedo))
-    apart = ~near(px["planar"], px["tiled"])
-    forked = ~apart & ~near(white["planar"], white["tiled"])
-    agree = ~apart & ~forked & near(px["witness"], px["tiled"])
-    cot = 2.0 * (px["tiled"] - target) / target.numel() * agree[:, None]
+    white = frames(engines, albedo=torch.ones_like(scene.albedo))
+    apart = ~near(px[ea], px[eb])
+    forked = ~apart & ~near(white[ea], white[eb])
+    agree = ~apart & ~forked & near(px["witness"], px[eb])
+    cot = 2.0 * (px[eb] - target) / target.numel() * agree[:, None]
     grads = {}
     for name, (e, sc, cm, p) in runs.items():
         p = {k: v.clone().requires_grad_(True) for k, v in p.items()}
@@ -1492,7 +1544,13 @@ def engine_gradients_raw(torch, rt, params, scene, cam, target, ids, key,
     return grads, {"pixels": int(agree.numel()),
                    "knife_edge_pixels": int(apart.sum()),
                    "forked_path_pixels": int(forked.sum()),
-                   "witness_knife_edge_pixels": int((~agree).sum())}
+                   "witness_knife_edge_pixels": int((~agree).sum()),
+                   "engines": list(engines),
+                   "pixels_bit_equal": bool(torch.equal(px[ea], px[eb])),
+                   "pixels_max_abs_diff":
+                       float((px[ea] - px[eb]).abs().max()),
+                   "pixels_within_rtol_1e-4_atol_2e-5": bool(torch.allclose(
+                       px[ea], px[eb], rtol=1e-4, atol=2e-5))}
 
 
 def _spread(err, scale, live):
@@ -1506,19 +1564,22 @@ def _spread(err, scale, live):
             "max": float(r.max())}
 
 
-def engine_gradients(torch, rt, params, scene, cam, target, ids, key, **kw):
-    """The per-leaf record behind ``engine_gradients_agree``: planar
-    against tiled, and each against the float64 witness, element by
-    element, every error over the size of its own row (one sphere's or
-    one material's gradient: the witness's largest |element| there), so
-    that the small spheres count as much as the ground."""
+def engine_gradients(torch, rt, params, scene, cam, target, ids, key,
+                     engines=("planar", "tiled"), **kw):
+    """The per-leaf record behind ``engine_gradients_agree``: the first
+    engine (planar) against the second (tiled), and each against the
+    float64 witness, element by element, every error over the size of its
+    own row (one sphere's or one material's gradient: the witness's
+    largest |element| there), so that the small spheres count as much as
+    the ground. The keys keep the names planar / tiled for the first and
+    second engine."""
     grads, pixels = engine_gradients_raw(
-        torch, rt, params, scene, cam, target, ids, key, **kw)
+        torch, rt, params, scene, cam, target, ids, key, engines=engines,
+        **kw)
     out = {}
     for k in params:
         p, t, w = (grads[e][k].to(torch.float64).reshape(
-            grads[e][k].shape[0], -1) for e in ("planar", "tiled",
-                                                "witness"))
+            grads[e][k].shape[0], -1) for e in (*engines, "witness"))
         scale = w.abs().amax(dim=1, keepdim=True).expand_as(w)
         live = scale > 0
         res = _rel_to_largest(p, t)
@@ -2346,6 +2407,324 @@ def coherent_path_phase(rt, torch, nvidia_smi: str):
 
 
 # --------------------------------------------------------------------- #
+# grouped_path phase: the sphere-group kernel on coherent rays
+# --------------------------------------------------------------------- #
+
+def group_lane_candidates(torch, rays, groups, act) -> int:
+    """The sorted spheres that closest_hit_grouped's contract makes the
+    active lanes test, from the INPUTS alone, in plain PyTorch: a lane
+    must test a group whose bound it might hit itself (the kernel's own
+    test); the kernel skips a group only when a whole warp need not, so it
+    tests at least this much -- the operations its bound is stated with."""
+    from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
+
+    ox, oy, oz, dx, dy, dz = (p.reshape(-1, 1) for p in rays)
+    gx, gy, gz, gr = (g[None, :] for g in groups)
+    a = dx * dx + dy * dy + dz * dz
+    total = 0
+    live = (act > 0).reshape(-1)
+    for lo in range(0, ox.shape[0], 1 << 18):
+        sl = slice(lo, lo + (1 << 18))
+        ocx, ocy, ocz = ox[sl] - gx, oy[sl] - gy, oz[sl] - gz
+        b = ocx * dx[sl] + ocy * dy[sl] + ocz * dz[sl]
+        c = ocx * ocx + ocy * ocy + ocz * ocz - gr * gr
+        might = (b * b - a[sl] * c > 0) & ((b < 0) | (c < 0))
+        total += int((might & live[sl, None]).sum())
+    return total * seg.GROUP
+
+
+def grouped_checks(torch, name, rays, act, eng, sorted_params, groups,
+                   perm, seg_out):
+    """closest_hit_grouped on one set of rays: its output through
+    trace_segment (``seg_out``) against its plain version (bit-equal),
+    against closest_hit on the unsorted scene in the terms of the JAX
+    package's test (tests/test_pallas_intersect.py: the same hit, t within
+    rtol 2e-4 / atol 1e-3, the same material), its own count of the
+    group-tests it skipped, and its times beside closest_hit's."""
+    from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
+
+    geom_s = sorted_params[:4]
+    stats = torch.zeros(2, dtype=torch.int64, device=act.device)
+    hk, tk, sk = seg.segment_closest_hit_grouped(rays, *geom_s, groups,
+                                                 eng.t_min, active=act,
+                                                 stats=stats)
+    hr, tr, sr = seg.segment_closest_hit_grouped_reference(
+        rays, *geom_s, groups, eng.t_min, active=act)
+    h1, t1, s1 = seg.segment_closest_hit(rays, *eng.sphere_params[:4],
+                                         eng.t_min, active=act,
+                                         table=eng.htable)
+    torch.cuda.synchronize()
+    live = act > 0
+    bit_equal = bool(torch.equal(hk, hr) and torch.equal(sk, sr)
+                     and torch.equal(tk.view(torch.int32),
+                                     tr.view(torch.int32)))
+    via_trace = bool(torch.equal(seg_out["hit"], hk)
+                     and torch.equal(seg_out["t"], tk))
+    both = live & (hk > 0) & (h1 > 0)
+    orig = perm[sk.to(torch.int64).clamp(max=perm.numel() - 1)].to(
+        torch.int32)
+    same = both & (orig == s1)
+    t_ok = (tk - t1).abs() <= 1e-3 + 2e-4 * t1.abs()
+    mats = ("mt", "ar", "ag", "ab", "fz", "io")
+    mat_same = same.clone()
+    for k, p in zip(mats, seg.resolve_params(s1, eng.sphere_params)[4:]):
+        mat_same &= seg_out[k] == p
+    n_act = int(live.sum())
+    tested = group_lane_candidates(torch, rays, groups, act)
+    hits = live & (hk > 0) & (hr > 0)
+    skipped, in_all = (int(v) for v in stats.tolist())
+    res = {"rays": name, "lanes": act.numel(), "active": n_act,
+           "bit_equal_to_plain": bit_equal,
+           "trace_segment_is_the_kernel": via_trace,
+           "hit_differs_from_closest_hit": int((live & (hk != h1)).sum()),
+           "winner_differs": int((both & ~same).sum()),
+           "t_beyond_rtol_2e-4_atol_1e-3": int((same & ~t_ok).sum()),
+           "material_differs_same_winner": int((same & ~mat_same).sum()),
+           "group_tests_skipped": skipped, "group_tests": in_all,
+           "share_skipped": skipped / max(in_all, 1),
+           "share_skippable_lane_by_lane":
+               1.0 - tested / (seg.GROUP * max(n_act, 1) * groups[0].numel()),
+           "max_abs_err": float((tk - tr).abs()[hits].max())
+           if bool(hits.any()) else 0.0,
+           "int_mismatch": int((live & ((hk != hr) | (sk != sr))).sum())}
+    res.update(times(
+        lambda: seg.segment_closest_hit_grouped(rays, *geom_s, groups,
+                                                eng.t_min, active=act),
+        lambda: seg.segment_closest_hit_grouped_reference(
+            rays, *geom_s, groups, eng.t_min, active=act)))
+    res["closest_hit_ms_same_rays"] = device_ms(
+        lambda: seg.segment_closest_hit(rays, *eng.sphere_params[:4],
+                                        eng.t_min, active=act,
+                                        table=eng.htable))
+    res.update(bound(n_act * groups[0].numel() * GROUP_TEST_FLOPS
+                     + tested * IX_FLOPS_PER_SPHERE,
+                     lane_bytes(act.numel(), n_act)
+                     + geom_s[0].numel() * 16 + groups[0].numel() * 16))
+    res["ok"] = (bit_equal and via_trace
+                 and res["hit_differs_from_closest_hit"] <= 1e-4 * n_act
+                 and res["winner_differs"] <= 1e-4 * n_act
+                 and res["t_beyond_rtol_2e-4_atol_1e-3"] == 0
+                 and res["material_differs_same_winner"] == 0)
+    return res
+
+
+def grouped_path_phase(rt, torch, nvidia_smi: str):
+    """The sphere-group kernel on the rays it was designed for: the camera
+    rays of a full-width frame's first pool (2^20 lanes, tile ownership:
+    neighbouring lanes on neighbouring pixels) and a mid-frame state of the
+    same frame, each through ``trace_segment(group_params=...)`` with the
+    launch counts read around those two calls; then the checks of
+    ``grouped_checks``. No engine of the port calls this kernel (nor does
+    the JAX package's)."""
+    from raytracinginoneweekend_tpu_torch import kernels
+    from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
+    from raytracinginoneweekend_tpu_torch.ops import wavefront
+
+    shape = dict(width=MAIN["width"], height=MAIN["height"],
+                 spp=MAIN["spp"], depth=MAIN["depth"])
+    eng = make_engine(rt, torch, "huge", "cpu", "thinlens",
+                      dataclasses.replace(rt.DEFAULT, ownership="tile"),
+                      pool_size=1 << 20, **shape)
+    states = {"camera_rays": wavefront.engine_prologue(eng),
+              "mid_frame": mid_frame_state(eng, 40)}
+    sorted_params, groups = seg.group_scene(eng.sphere_params)
+    perm = seg.group_order(eng.sphere_params)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    segs = {name: seg.trace_segment(tuple(st[4:10]), sorted_params,
+                                    eng.t_min, active=st[3],
+                                    group_params=groups)
+            for name, st in states.items()}
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    require(launches["closest_hit_grouped"] == len(states)
+            and sum(launches.values()) == len(states),
+            f"trace_segment(group_params=...) launched {launches}")
+    out = {name: grouped_checks(torch, name, tuple(st[4:10]), st[3], eng,
+                                sorted_params, groups, perm, segs[name])
+           for name, st in states.items()}
+    emit({"phase": "grouped_path", "card": nvidia_smi, **shape,
+          "pool": eng.lanes, "groups": groups[0].numel(),
+          "launches": launches, "checks": out})
+    for name, res in out.items():
+        require(res["ok"], f"closest_hit_grouped on the {name}: {res}")
+    require(out["camera_rays"]["hit_differs_from_closest_hit"] == 0,
+            "closest_hit_grouped and closest_hit disagree on a camera ray")
+    main = out["camera_rays"]
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "lanes",
+            "active", "share_skipped", "share_skippable_lane_by_lane",
+            "closest_hit_ms_same_rays", "hit_differs_from_closest_hit",
+            "winner_differs")
+    entry = {"name": "closest_hit_grouped", "route": "cuda",
+             "source": "raytracinginoneweekend_tpu_torch/csrc/"
+                       "closest_hit_grouped.cu",
+             "replaces": "raytracinginoneweekend_tpu/ops/"
+                         "pallas_segment.py:484",
+             "launches": launches["closest_hit_grouped"],
+             "max_abs_err": max(r["max_abs_err"] for r in out.values()),
+             "int_mismatch_lanes": sum(r["int_mismatch"]
+                                       for r in out.values()),
+             **{k: main[k] for k in keys}, "library_ms": None,
+             "rays": "camera rays of the first pool, tile ownership",
+             "at_mid_frame": {k: out["mid_frame"][k] for k in keys}}
+    return entry
+
+
+# --------------------------------------------------------------------- #
+# mega_path phase: the whole-bounce kernel
+# --------------------------------------------------------------------- #
+
+def mega_kernel_checks(rt, torch, shape):
+    """mega_bounce against its plain version on the main frame's mid-frame
+    lane state at two pool sizes (32768 and 2^20 lanes), and timed."""
+    from raytracinginoneweekend_tpu_torch.ops import cuda_mega, wavefront
+
+    out = {}
+    for pool in (1 << 15, 1 << 20):
+        eng = make_engine(rt, torch, "huge", "cpu", "thinlens", rt.DEFAULT,
+                          pool_size=pool, **shape)
+        state = mid_frame_state(eng, 40)
+        planes, kw = wavefront.mega_planes(state), wavefront.mega_kw(eng)
+        tables = cuda_mega.mega_tables(eng.sphere_params)
+        got = cuda_mega.mega_bounce(planes, eng.sphere_params,
+                                    tables=tables, **kw)
+        want = cuda_mega.mega_bounce_reference(planes, eng.sphere_params,
+                                               **kw)
+        torch.cuda.synchronize()
+        int_agree = (got[12] == want[12]) & (got[13] == want[13])
+        outliers = torch.zeros_like(int_agree)
+        max_abs, bits = 0.0, 0
+        for g, w in zip(got[:12], want[:12]):
+            close = torch.isclose(g, w, rtol=1e-5, atol=1e-6, equal_nan=True)
+            outliers |= int_agree & ~close
+            bits += int((int_agree & (g.view(torch.int32)
+                                      != w.view(torch.int32))).sum())
+            sel = int_agree & close & torch.isfinite(w)
+            if bool(sel.any()):
+                max_abs = max(max_abs, float((g - w).abs()[sel].max()))
+        active = int((planes[0] > 0).sum())
+        n_sph = eng.sphere_params[0].shape[0]
+        res = {"lanes": eng.lanes, "active": active,
+               "int_mismatch": int((~int_agree).sum()),
+               "float_outliers": int(outliers.sum()),
+               "bit_unequal_float_elements": bits, "max_abs_err": max_abs,
+               "kept": int((got[12] > 0).sum())}
+        res.update(times(
+            lambda: cuda_mega.mega_bounce(planes, eng.sphere_params,
+                                          tables=tables, **kw),
+            lambda: cuda_mega.mega_bounce_reference(
+                planes, eng.sphere_params, **kw)))
+        res["closest_hit_ms_same_rays"] = device_ms(
+            lambda: wavefront.engine_closest_hit(eng, state))
+        res.update(bound(active * n_sph * CH_FLOPS_PER_SPHERE,
+                         eng.lanes * (16 + 14) * 4 + n_sph * 56))
+        res["ok"] = (res["int_mismatch"] == 0
+                     and res["float_outliers"] <= max(1, 1e-4 * eng.lanes))
+        out[f"pool_{pool}"] = res
+    return out
+
+
+def mega_path_phase(rt, torch, nvidia_smi: str):
+    """``mega="bounce"`` (``render --fusion bounce``): the kernel against
+    its plain version; frames at 240x160 against the default frame, the
+    unfused step and its own plain frame; then the full-width frame
+    through the CLI at a pool of 2^20 lanes with the launch counts read
+    around it, and once more in the process beside the default frame."""
+    from raytracinginoneweekend_tpu_torch import cli, kernels
+    from raytracinginoneweekend_tpu_torch.golden import compare_frames
+    from raytracinginoneweekend_tpu_torch.utils.timing import time_fn
+
+    w, h, spp, depth = (MAIN[k] for k in ("width", "height", "spp", "depth"))
+    shape = dict(width=w, height=h, spp=spp, depth=depth)
+    checks = mega_kernel_checks(rt, torch, shape)
+    bounce = dataclasses.replace(rt.DEFAULT, mega="bounce")
+    off = dataclasses.replace(rt.DEFAULT, mega="off")
+
+    def held(img, ref):
+        res = compare_frames(img.cpu().numpy(), ref.cpu().numpy())
+        res["bit_equal"] = bool(torch.equal(img, ref))
+        return res
+
+    small = {"bounce": render(rt, torch, bounce, **SMALL),
+             "default": render(rt, torch, rt.DEFAULT, **SMALL),
+             "off": render(rt, torch, off, **SMALL),
+             "plain_bounce": render(rt, torch, bounce, plain=True, **SMALL),
+             "plain_off": render(rt, torch, off, plain=True, **SMALL)}
+    frames = {f"bounce_vs_{k}": held(small["bounce"], small[k])
+              for k in ("default", "off", "plain_bounce")}
+    frames["plain_bounce_vs_plain_off"] = held(small["plain_bounce"],
+                                               small["plain_off"])
+
+    pool = 1 << 20
+    stats, launches, cli_seconds, argv = cli_render(
+        torch, "mega_bounce", ["--fusion", "bounce", "--pool-size",
+                               str(pool)], spp)
+    iters = stats["iters"]
+    dev = torch.device("cuda")
+    frame = dict(width=w, height=h, depth=depth, spp=spp, pool_size=pool,
+                 scene=cli._build_scene("huge", 0, dev),
+                 cam=cli._build_camera("cpu", w, h, dev))
+    sec_d, img_d = time_fn(lambda: render(rt, torch, rt.DEFAULT, **frame),
+                           warmup=1, iters=1, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img_b = render(rt, torch, bounce, **frame)  # built and warm: the CLI's
+    torch.cuda.synchronize()
+    sec_b = time.perf_counter() - t0
+    rays = w * h * spp
+    full = {"argv": argv, "cli_stats": stats, "launches": launches,
+            "cli_seconds": cli_seconds, "seconds_per_frame": sec_b,
+            "camera_rays_per_s": rays / sec_b,
+            "iterations": iters, "occupancy": stats["occupancy"],
+            "default_seconds_per_frame": sec_d,
+            "default_camera_rays_per_s": rays / sec_d,
+            "vs_default": compare_frames(img_b.cpu().numpy(),
+                                         img_d.cpu().numpy()),
+            "mean_diff_vs_default": abs(float(img_b.mean())
+                                        - float(img_d.mean())),
+            "finite": bool(torch.isfinite(img_b).all())}
+    emit({"phase": "mega_path", "card": nvidia_smi, **MAIN,
+          "kernel": checks, "frames_240x160": frames, "full_width": full})
+    for name, res in checks.items():
+        require(res["ok"], f"mega_bounce disagrees with its plain version "
+                f"({name}): {res}")
+    for name, res in frames.items():
+        require(res["ok"], f"mega='bounce' frames, {name}: {res}")
+    require(frames["plain_bounce_vs_plain_off"]["bit_equal"],
+            "the plain whole-bounce frame differs from the plain unfused "
+            "frame")
+    require(launches["mega_bounce"] == iters and iters > 0
+            and sum(launches.values()) == iters,
+            f"--fusion bounce launched {launches} in {iters} iterations")
+    # (Not the frame rule against the default frame at full width: like
+    # --fusion off, the whole-bounce step issues every camera ray through
+    # the plain regen, whose sinf/cosf differ from the shade_regen
+    # kernel's by an ulp, and over 100 spp at depth 50 the knife-edge
+    # paths that this moves touch a few percent of pixels -- the same
+    # pixels as --fusion off's frame; ROADMAP.md, Queue 3. The 240x160
+    # frames above hold the step to the rule and to the bit.)
+    require(full["finite"] and full["mean_diff_vs_default"] < MEAN_TOL,
+            f"the full-width mega='bounce' frame: {full}")
+    main = checks[f"pool_{1 << 15}"]
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "lanes",
+            "active", "max_abs_err", "int_mismatch",
+            "closest_hit_ms_same_rays")
+    return {"name": "mega_bounce", "route": "cuda",
+            "source": "raytracinginoneweekend_tpu_torch/csrc/mega_bounce.cu",
+            "replaces": "raytracinginoneweekend_tpu/ops/pallas_mega.py:155",
+            "launches": launches["mega_bounce"],
+            "max_abs_err": max(r["max_abs_err"] for r in checks.values()),
+            "int_mismatch_lanes": sum(r["int_mismatch"]
+                                      for r in checks.values()),
+            "float_outlier_lanes": sum(r["float_outliers"]
+                                       for r in checks.values()),
+            **{k: main[k] for k in keys[:7]},
+            "closest_hit_ms_same_rays": main["closest_hit_ms_same_rays"],
+            "library_ms": None,
+            "at_pool_1m": {k: checks[f"pool_{1 << 20}"][k] for k in keys}}
+
+
+# --------------------------------------------------------------------- #
 # train_path and cli_fit phases
 # --------------------------------------------------------------------- #
 
@@ -2509,7 +2888,159 @@ def train_path_phase(rt, torch, nvidia_smi: str):
           "grad_planar_vs_tiled": diff, "grad_pixels": px})
     for cond, what in pending:
         require(cond, what)
+    train_pool_path(rt, torch, nvidia_smi, scene, perturbed, cam, which,
+                    options)
     return launches
+
+
+def step_apart(torch, optim, inverse, params, scene, cam, tb, ids, key,
+               engine, **kw):
+    """One train step taken apart (the second of two passes is timed):
+    forward, backward and update seconds, the loss, and the closest-hit
+    launches of the timed pass."""
+    from raytracinginoneweekend_tpu_torch import kernels
+
+    p = {k: v.detach().clone().requires_grad_(True)
+         for k, v in params.items()}
+    adam = inverse.make_adam(p, TRAIN["lr"])
+    losses, launches = [], []
+    for _ in range(2):
+        adam.zero_grad(set_to_none=True)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = optim.render_loss(p, scene, cam, tb, ids, key, engine=engine,
+                                 **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        adam.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        losses.append(float(loss.detach()))
+        launches.append(kernels.LAUNCHES["closest_hit"])
+    # the first pass starts from ``params`` (the second from an update
+    # whose atomic sums differ in their last bits from run to run)
+    return {"forward_s": t1 - t0, "backward_s": t2 - t1, "adam_s": t3 - t2,
+            "step_s": t3 - t0, "loss_at_params": losses[0],
+            "closest_hit_launches_at_params": launches[0],
+            "closest_hit_launches": launches[1]}
+
+
+def train_pool_path(rt, torch, nvidia_smi, scene, perturbed, cam, which,
+                    options):
+    """The training path at the regenerative AD pool's flagship depth: the
+    same batch shape (16384 pixels x 8 spp) at depth AD_DEPTH, where
+    engine "auto" resolves to the pool (ops/wavefront_ad.py). optim.fit on
+    a target of the same depth (the forward wavefront engine: the same
+    estimator), one warm-up and ten timed steps with the launch counts and
+    the peak memory read around them; one step of the pool and one of the
+    planar engine taken apart on one batch; the budget the batch needs
+    (``wavefront_ad_budget``), ``wavefront_ad_done`` at it and a step in
+    the flat-budget mode (remat "auto"); the pool's pixels against the
+    planar engine's (the same draws) and its gradients by the render_loss
+    rule (``engine_gradients_agree``, the float64 witness)."""
+    import statistics
+
+    from raytracinginoneweekend_tpu_torch import kernels, optim
+    from raytracinginoneweekend_tpu_torch.ops import wavefront_ad
+    from raytracinginoneweekend_tpu_torch.optim import inverse
+
+    dev = torch.device("cuda")
+    w, h, depth = TRAIN["width"], TRAIN["height"], AD_DEPTH
+    engine = inverse.resolve_ad_engine(depth, options.rr_terminate)
+    require(engine == "wavefront",
+            f"engine 'auto' resolves to {engine!r} at depth {depth}")
+    kw = dict(width=w, height=h, spp=TRAIN["spp"], max_depth=depth,
+              camera_mode="thinlens", options=options)
+    target = rt.render_wavefront(
+        scene, cam, rt.key_words(0), width=w, height=h,
+        spp=TRAIN["target_spp"], max_depth=depth, camera_mode="thinlens",
+        options=options, pool_size=1 << 20, device=dev).reshape(h, w, 3)
+    cfg = rt.RenderConfig(width=w, height=h, spp=TRAIN["target_spp"],
+                          max_depth=depth, camera_mode="thinlens",
+                          options=options)
+    n_steps = TRAIN["warmup_steps"] + TRAIN["timed_steps"]
+    stamps = []
+
+    def callback(i, params, optimizer, loss):
+        stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    _, params, _opt, losses = optim.fit(
+        perturbed, cam, target, cfg, which=which, steps=n_steps,
+        learning_rate=TRAIN["lr"], batch_pixels=TRAIN["batch_pixels"],
+        spp=TRAIN["spp"], engine="auto", callback=callback, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    timed = step_s[TRAIN["warmup_steps"]:]
+
+    batch_key, render_key = inverse.step_keys(rt.key_words(7), n_steps)
+    ids = inverse.draw_pixel_batch(batch_key, w * h, TRAIN["batch_pixels"],
+                                   dev)
+    tb = target.reshape(-1, 3)[ids.to(torch.int64)]
+    start = optim.params_from_scene(perturbed, which)
+    parts = {e: step_apart(torch, optim, inverse, start, perturbed, cam, tb,
+                           ids, render_key, e, **kw)
+             for e in ("wavefront", "planar")}
+    budget = wavefront_ad.wavefront_ad_budget(perturbed, cam, ids,
+                                              render_key, **kw)
+    done = wavefront_ad.wavefront_ad_done(perturbed, cam, ids, render_key,
+                                          iters=budget, **kw)
+    pid_waves, _sid, _rows, _n = wavefront_ad._wave_layout(
+        ids, TRAIN["spp"], 1 << 15)
+    lanes = pid_waves.shape[1] * pid_waves.shape[2]
+    remat = ("none" if budget * lanes * wavefront_ad._RES_BYTES_PER_LANE_ITER
+             <= wavefront_ad._NOREMAT_CAP_BYTES else "step")
+    torch.cuda.reset_peak_memory_stats()
+    flat = step_apart(torch, optim, inverse, start, perturbed, cam, tb, ids,
+                      render_key, "wavefront",
+                      engine_opts={"iters": budget, "remat": "auto"}, **kw)
+    flat["peak_bytes"] = torch.cuda.max_memory_allocated()
+    diff, px = engine_gradients(torch, rt, start, perturbed, cam, tb, ids,
+                                render_key, engines=("wavefront", "planar"),
+                                **kw)
+    rays = TRAIN["batch_pixels"] * TRAIN["spp"]
+    emit({"phase": "train_path", "part": "ad_pool", "card": nvidia_smi,
+          **TRAIN, "depth": depth, "which": which,
+          "engine": "auto -> " + engine, "pool_lanes": lanes,
+          "waves": pid_waves.shape[0], "launches": launches,
+          "closest_hit_launches_per_step": launches["closest_hit"] / n_steps,
+          "step_seconds": step_s,
+          "step_seconds_median": statistics.median(timed),
+          "rays_per_second": rays / statistics.median(timed),
+          "losses": losses, "peak_bytes_fit": peak,
+          "one_step_parts": parts, "budget_iterations": budget,
+          "done_at_budget": done, "remat_auto_at_budget": remat,
+          "flat_budget_step": flat,
+          "grad_pool_vs_planar": diff, "grad_pixels": px})
+    require(all(x == x and abs(x) != float("inf") for x in losses),
+            f"non-finite loss: {losses}")
+    require(launches["closest_hit"] > 0
+            and sum(launches.values()) == launches["closest_hit"],
+            f"the pool's steps launched {launches}")
+    n_first = parts["wavefront"]["closest_hit_launches_at_params"]
+    require(n_first == budget and done,
+            f"one pool step launched closest_hit {n_first} times; the batch "
+            f"needs {budget} iterations (done: {done}); backward must not "
+            "launch it again")
+    require(flat["loss_at_params"] == parts["wavefront"]["loss_at_params"],
+            f"the flat budget's loss {flat['loss_at_params']} differs from "
+            f"the epoch mode's {parts['wavefront']['loss_at_params']}")
+    require(px["pixels_within_rtol_1e-4_atol_2e-5"],
+            f"the pool's pixels differ from the planar engine's: {px}")
+    for cond, what in engine_pixels_agree(px):
+        require(cond, what)
+    for k in which:
+        require(engine_gradients_agree(k, diff[k]),
+                f"gradient of {k}, pool vs planar: {diff[k]}")
 
 
 def cli_fit_phase(rt, torch, nvidia_smi: str):
@@ -2550,12 +3081,29 @@ def cli_fit_phase(rt, torch, nvidia_smi: str):
     _p, _o, step2 = optim.load_checkpoint(ckpt, tmpl)
     require(step2 == CLI_FIT["steps"] + 2, f"resumed to step {step2}")
     lines = said.getvalue().strip().splitlines()
+    # the CLI's defaults with Russian roulette: depth 32 > 28, so engine
+    # "auto" is the regenerative AD pool
+    from raytracinginoneweekend_tpu_torch.ops import wavefront_ad
+
+    rr_argv = argv[:argv.index("--checkpoint")] + ["--rr-terminate"]
+    rr_said = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with recorded_calls(wavefront_ad, "trace_wavefront_ad") as pool_calls, \
+            contextlib.redirect_stdout(rr_said):
+        rc_rr = cli.main(rr_argv)
+    rr = {"argv": rr_argv, "seconds": time.perf_counter() - t0,
+          "launches": dict(kernels.LAUNCHES), "pool_traces": len(pool_calls),
+          "said": rr_said.getvalue().strip().splitlines()[-3:]}
     emit({"phase": "cli_fit", "card": nvidia_smi, "argv": argv,
           "seconds": seconds, "launches": launches,
           "said": lines[-3:], "checkpoint_step": step,
-          "resumed_to_step": step2})
+          "resumed_to_step": step2, "rr_terminate_run": rr})
     require(launches["intersect"] > 0 and launches["closest_hit"] > 0,
             f"the CLI's fit did not go through the kernels: {launches}")
+    require(rc_rr == 0 and rr["pool_traces"] == CLI_FIT["steps"]
+            and rr["launches"]["closest_hit"] > 0,
+            f"fit --rr-terminate did not train through the pool: {rr}")
 
 
 # The full frame's mean against the 240x160 @ 8 spp frame's: two Monte-Carlo
@@ -2602,43 +3150,54 @@ def main(argv=None) -> int:
           "nvcc_flags": list(kernels.NVCC_FLAGS),
           "kernel_build_seconds": kernels.build_seconds})
 
-    line, launches, train_launches, small_mean = None, None, None, None
-    coherent_launches = None
+    out = {}
+    runs = {
+        "kernels": lambda: kernels_phase(rt, torch, nvidia_smi),
+        "grad_vs_plain": lambda: grad_vs_plain_phase(rt, torch, nvidia_smi),
+        "frame_vs_plain": lambda: frame_vs_plain_phase(rt, torch,
+                                                       nvidia_smi),
+        "frame_vs_golden": lambda: frame_vs_golden_phase(rt, torch,
+                                                         nvidia_smi),
+        "main_path": lambda: main_path_phase(
+            rt, torch, nvidia_smi, out.get("frame_vs_plain"), args.arm_spp),
+        "coherent_path": lambda: coherent_path_phase(rt, torch, nvidia_smi),
+        "grouped_path": lambda: grouped_path_phase(rt, torch, nvidia_smi),
+        "mega_path": lambda: mega_path_phase(rt, torch, nvidia_smi),
+        "train_path": lambda: train_path_phase(rt, torch, nvidia_smi),
+        "cli_fit": lambda: cli_fit_phase(rt, torch, nvidia_smi),
+    }
     try:
-        if "kernels" in phases:
-            line = kernels_phase(rt, torch, nvidia_smi)
-        if "grad_vs_plain" in phases:
-            grad_vs_plain_phase(rt, torch, nvidia_smi)
-        if "frame_vs_plain" in phases:
-            small_mean = frame_vs_plain_phase(rt, torch, nvidia_smi)
-        if "frame_vs_golden" in phases:
-            frame_vs_golden_phase(rt, torch, nvidia_smi)
-        if "main_path" in phases:
-            launches = main_path_phase(rt, torch, nvidia_smi, small_mean,
-                                       args.arm_spp)
-        if "coherent_path" in phases:
-            coherent_launches = coherent_path_phase(rt, torch, nvidia_smi)
-        if "train_path" in phases:
-            train_launches = train_path_phase(rt, torch, nvidia_smi)
-        if "cli_fit" in phases:
-            cli_fit_phase(rt, torch, nvidia_smi)
+        for phase in PHASES:
+            if phase in phases:
+                t0 = time.perf_counter()
+                out[phase] = runs[phase]()
+                print(f"chip_smoke: {phase} took "
+                      f"{time.perf_counter() - t0:.1f} s", file=sys.stderr,
+                      flush=True)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    line, launches, train_launches = (out.get(k) for k in (
+        "kernels", "main_path", "train_path"))
+    coherent_launches = out.get("coherent_path")
 
     if phases != list(PHASES):
         print(f"chip_smoke: ran only {phases}; no verdict", file=sys.stderr)
         return 5
+    line += [out["grouped_path"], out["mega_path"]]
     for k in line:
         # each kernel's count on the path that runs it: the forward render
         # for closest_hit and shade_regen, the coherent engines' full-width
         # frames for the list, sorted and mxu kernels, the training path
-        # for intersect (and closest_hit again, under autograd)
+        # for intersect (and closest_hit again, under autograd), the
+        # grouped path's two trace_segment(group_params=...) calls, and
+        # the full-width --fusion bounce frame for mega_bounce (both set by
+        # their phases)
         name = k["name"]
         if name in ("closest_hit_list", "closest_hit_sorted",
                     "closest_hit_mxu"):
             k["launches"] = coherent_launches[name]
-        else:
+        elif name not in ("closest_hit_grouped", "mega_bounce"):
             k["launches"] = (train_launches if name == "intersect"
                              else launches)[name]
         k["launches_train_path"] = train_launches[name]

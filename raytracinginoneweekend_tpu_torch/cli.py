@@ -20,9 +20,8 @@ names), or ``auto``, the default: the kernel on a CUDA device, the
 preset's own value elsewhere. That default is the one place where the
 same ``--compat`` gives other TraceOptions than the JAX package's CLI,
 which never sets the field (ROADMAP.md, Queue 3). ``serve``, ``--via``,
-``--adaptive``, the sharded engines, ``--fusion bounce``, the regenerative
-AD pool and the gradient surrogates come with later slices of the port
-(ROADMAP.md).
+``--adaptive``, the sharded engines and the gradient surrogates come with
+later slices of the port (ROADMAP.md).
 
 Examples:
   python -m raytracinginoneweekend_tpu_torch render --scene simple-cuda \
@@ -123,8 +122,9 @@ def _add_render_flags(p: argparse.ArgumentParser):
     p.add_argument("--fusion", default=None,
                    choices=["off", "bounce", "fused"],
                    help="wavefront kernel-fusion level (TraceOptions.mega; "
-                        "default: the compat preset's, 'fused'; 'bounce' "
-                        "is not ported yet and is refused)")
+                        "default: the compat preset's, 'fused'; 'bounce' = "
+                        "the whole-bounce kernel, 'off' = closest-hit "
+                        "kernel + plain PyTorch)")
     p.add_argument("--hit-kernel", default=None,
                    choices=["sublane", "mxu", "sorted"],
                    help="closest-hit kernel (TraceOptions.hit_kernel; "
@@ -385,7 +385,7 @@ def main(argv=None) -> int:
                         "the regenerative pool), 'planar' = fixed-depth "
                         "(R,128) planes with the closest-hit kernel, "
                         "'tiled' = the (N,3) engine, 'wavefront' = the "
-                        "regenerative pool (not ported yet)")
+                        "regenerative pool)")
     p.add_argument("--rr-grad", action="store_true",
                    help="the dielectric Russian-roulette branch-flip "
                         "gradient term (not ported yet: refused)")

@@ -22,7 +22,8 @@
 //
 // Shared with closest_hit.cu: the loop and the shared-memory table. NOT
 // shared: the candidate. This kernel keeps the TPU kernel's t-space form
-// in its operation order -- disc = b*b - a*c; pos = disc > 0;
+// in its operation order (rtw_candidate_t in rtw_common.cuh, shared with
+// closest_hit_grouped.cu) -- disc = b*b - a*c; pos = disc > 0;
 // sq = sqrt(pos ? disc : 1); t0 = (-b - sq) * (1/a); t1 = (-b + sq) * (1/a);
 // each root tested `> t_min`; miss = 1e30 -- where closest_hit.cu compares
 // in q-space with a NaN-tolerant sqrt.
@@ -59,21 +60,8 @@ intersect_kernel(const float* __restrict__ origin,     // (N, 3)
     int i_best = 0;
 #pragma unroll 4
     for (int s = 0; s < n_spheres; ++s) {
-        const float4 c4 = sph[s];
-        const float ocx = ox - c4.x;
-        const float ocy = oy - c4.y;
-        const float ocz = oz - c4.z;
-        const float b = ocx * dx + ocy * dy + ocz * dz;
-        const float c = ocx * ocx + ocy * ocy + ocz * ocz - c4.w;
-        const float disc = b * b - a * c;
-        const bool pos = disc > 0.0f;
-        const float sq = sqrtf(pos ? disc : 1.0f);
-        const float nb = -b;
-        const float t0 = (nb - sq) * inv_a;
-        const float t1 = (nb + sq) * inv_a;
-        const float tc = (pos && t0 > t_min)
-                             ? t0
-                             : ((pos && t1 > t_min) ? t1 : RTW_BIG);
+        const float tc =
+            rtw_candidate_t(ox, oy, oz, dx, dy, dz, a, inv_a, t_min, sph[s]);
         if (tc < t_best) {
             t_best = tc;
             i_best = s;

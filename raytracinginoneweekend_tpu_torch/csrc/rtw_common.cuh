@@ -71,6 +71,31 @@ __device__ __forceinline__ float rtw_candidate(float x, float y, float z,
     return (q0 > q_min) ? q0 : ((q1 > q_min) ? q1 : RTW_BIG);
 }
 
+// One sphere's candidate for one ray in t-space, with the guarded
+// discriminant: the TPU intersect kernel's formula in its operation order
+// (closest_hit_n3 in intersect.cu and closest_hit_grouped share it; plain
+// version: ops/intersect._block_candidates). inv_a = 1 / |d|^2,
+// c4 = (cx, cy, cz, r*r). Returns the near root if it is past t_min, else
+// the far root if it is, else RTW_BIG; disc <= 0 is a miss.
+__device__ __forceinline__ float rtw_candidate_t(float x, float y, float z,
+                                                 float vx, float vy,
+                                                 float vz, float a,
+                                                 float inv_a, float t_min,
+                                                 float4 c4) {
+    const float ocx = x - c4.x;
+    const float ocy = y - c4.y;
+    const float ocz = z - c4.z;
+    const float b = ocx * vx + ocy * vy + ocz * vz;
+    const float c = ocx * ocx + ocy * ocy + ocz * ocz - c4.w;
+    const float disc = b * b - a * c;
+    const bool pos = disc > 0.0f;
+    const float sq = sqrtf(pos ? disc : 1.0f);
+    const float nb = -b;
+    const float t0 = (nb - sq) * inv_a;
+    const float t1 = (nb + sq) * inv_a;
+    return (pos && t0 > t_min) ? t0 : ((pos && t1 > t_min) ? t1 : RTW_BIG);
+}
+
 // A thread block's candidate list into shared memory: sph[k] = table[id],
 // ids[k] = id for the n entries of `list` (ids clamped to the table, whose
 // last row `pad_id` is the pad sphere, so a bad id cannot become a wild

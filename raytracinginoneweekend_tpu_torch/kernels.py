@@ -15,7 +15,8 @@ versions whose products and sums are rounded separately.
 
 Each C entry returns ``cudaGetLastError()`` after its launch; ``check``
 raises when that is not 0. The wrappers (ops/cuda_segment.py,
-ops/cuda_fused.py, ops/cuda_intersect.py) own the launch counters;
+ops/cuda_fused.py, ops/cuda_intersect.py, ops/cuda_mega.py) own the launch
+counters;
 ``LAUNCHES`` here is the one
 table they count into, so a caller can zero and read all of them.
 """
@@ -68,12 +69,22 @@ ENTRIES = {
     # | n_lanes n_spheres t_min | stream
     "rtw_closest_hit_mxu": ("closest_hit_mxu.cu",
                             [_P] * 7 + [_P] + [_P] * 3 + [_I, _I, _F, _P]),
+    # state in ptrs (16) | state out ptrs (14) | table4 table10 | n_lanes
+    # n_spheres t_min max_depth unit_sample phys_refract sky_bias | stream
+    "rtw_mega_bounce": ("mega_bounce.cu",
+                        [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _F, _P]),
+    # act ox oy oz dx dy dz | table4 (sorted, S_pad) bounds4 | hit t sb
+    # | stats | n_lanes n_groups t_min | stream
+    "rtw_closest_hit_grouped": ("closest_hit_grouped.cu",
+                                [_P] * 7 + [_P] * 2 + [_P] * 3 + [_P]
+                                + [_I, _I, _F, _P]),
 }
 
 # Launch counts, one per kernel; each wrapper adds one where it launches.
 LAUNCHES = {"closest_hit": 0, "shade_regen": 0, "intersect": 0,
             "closest_hit_list": 0, "closest_hit_sorted": 0,
-            "closest_hit_mxu": 0}
+            "closest_hit_mxu": 0, "mega_bounce": 0,
+            "closest_hit_grouped": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict = {}

@@ -5,8 +5,9 @@ Counterpart of ``raytracinginoneweekend_tpu/ops/pallas_segment.py``:
 siblings for coherent rays (``segment_closest_hit_list``,
 ``segment_closest_hit_sorted`` with ``sorted_cull_state``,
 ``segment_closest_hit_mxu``), ``closest_hit_planar``, ``resolve_params``,
-``resolve_segment``, ``trace_segment`` and ``trace_segment_list``. The
-sphere-group kernel (``trace_segment(group_params=...)``) is not ported.
+``resolve_segment``, ``trace_segment`` and ``trace_segment_list``, and
+the sphere-group kernel (``group_scene``, ``segment_closest_hit_grouped``,
+``trace_segment(group_params=...)``).
 
 KERNEL NOTE. ``segment_closest_hit`` on CUDA tensors launches
 ``csrc/closest_hit.cu``, which replaces the Pallas TPU kernel
@@ -17,7 +18,7 @@ reading one sphere at a time as a broadcast (see the source's header).
 ``segment_closest_hit_reference`` is its plain PyTorch version: the same
 candidate arithmetic in the same order, vectorised over (lanes, spheres).
 
-KERNEL NOTES, the three siblings (each source's header has the detail):
+KERNEL NOTES, the four siblings (each source's header has the detail):
   * ``segment_closest_hit_list`` launches ``csrc/closest_hit_list.cu``
     (replaces ``pallas_segment.py::_kernel_list``): the loop runs over a
     per-cull-block candidate list from ops/cull.py, gathered into shared
@@ -29,6 +30,13 @@ KERNEL NOTES, the three siblings (each source's header has the detail):
     order, stages of the loop skipped when every lane of a warp provably
     cannot improve. Bound by arithmetic when nothing is skipped. Equal to
     ``segment_closest_hit`` except on exact q ties between two spheres.
+  * ``segment_closest_hit_grouped`` launches
+    ``csrc/closest_hit_grouped.cu`` (replaces ``_kernel_grouped``): the
+    spheres sorted into groups of 16 by ``group_scene``, each group behind
+    a bounding-sphere test that a warp skips when none of its active lanes
+    might hit it. The t-space candidate of the intersect kernel (guarded
+    ``disc > 0``), so it is held to ``segment_closest_hit`` only within
+    float32 rounding. Bound by arithmetic when nothing is skipped.
   * ``segment_closest_hit_mxu`` launches ``csrc/closest_hit_mxu.cu``
     (replaces ``_kernel_mxu``): the regrouped dot products d.C and o.C in
     the kernel's own body, in float32 in a fixed order. Bound by
@@ -62,6 +70,10 @@ from .rng import _f32
 LANES = 128
 BIG = 1e30
 UNROLL = 8  # spheres per chunk of the sorted kernel's order (the JAX value)
+GROUP = 16  # spheres per group of the grouped kernel (the JAX value)
+# the grouped kernel's sorted table and bounds in shared memory: 17 bytes a
+# sorted sphere (16, and 16 per group of 16)
+GROUP_MAX_SPHERES = (227 * 1024) // 17 // GROUP * GROUP
 MXU_MAX_SPHERES = 4096  # above it hit_kernel="mxu" means the sublane kernel
 MAX_LADDER = 16  # csrc/closest_hit_sorted.cu CS_MAX_LADDER
 _SORT_KEY_MARGIN = 1e-3  # key-side absolute margin (sorted_cull_state)
@@ -137,18 +149,27 @@ def segment_closest_hit_reference(rays, cx, cy, cz, r, t_min, active=None):
 
     rays: 6-tuple of (R, 128) f32 planes; cx/cy/cz/r: (S,) sphere
     geometry; active: optional (R, 128) bool/i32 plane. Returns
-    (hit_i i32, t f32, sphere_idx i32) planes. Works in slabs of lanes so
-    the (lanes, spheres) intermediates stay bounded.
+    (hit_i i32, t f32, sphere_idx i32) planes. Only the active lanes are
+    traced (an inactive lane's result is (0, 1e30, 0) whatever its ray),
+    in slabs of lanes so the (lanes, spheres) intermediates stay bounded.
     """
     shape = rays[0].shape
-    ox, oy, oz, dx, dy, dz = (p.reshape(-1, 1) for p in rays)
+    planes = [p.reshape(-1, 1) for p in rays]
+    dev = planes[0].device
+    n_all = planes[0].shape[0]
+    sel = None
+    if active is not None:
+        act = active if active.dtype == torch.bool else active > 0
+        sel = act.reshape(-1).nonzero().squeeze(1)
+        planes = [p[sel] for p in planes]
+    ox, oy, oz, dx, dy, dz = planes
     n = ox.shape[0]
     rr = (r * r)[None, :]
     cx, cy, cz = cx[None, :], cy[None, :], cz[None, :]
     t_min = _f32(t_min)
-    hit = torch.empty(n, dtype=torch.int32, device=ox.device)
-    t = torch.empty(n, dtype=torch.float32, device=ox.device)
-    sb = torch.empty(n, dtype=torch.int32, device=ox.device)
+    hit = torch.empty(n, dtype=torch.int32, device=dev)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    sb = torch.empty(n, dtype=torch.int32, device=dev)
     for lo in range(0, n, _REF_CHUNK):
         sl = slice(lo, min(lo + _REF_CHUNK, n))
         x, y, z = ox[sl], oy[sl], oz[sl]
@@ -163,8 +184,14 @@ def segment_closest_hit_reference(rays, cx, cy, cz, r, t_min, active=None):
         hit[sl] = h.to(torch.int32)
         t[sl] = torch.where(h, q_b * inv_a[:, 0], torch.full_like(q_b, BIG))
         sb[sl] = s_b.to(torch.int32)
-    return _mask_inactive(hit.reshape(shape), t.reshape(shape),
-                          sb.reshape(shape), active)
+    if sel is not None:
+        out = (torch.zeros(n_all, dtype=torch.int32, device=dev),
+               torch.full((n_all,), BIG, dtype=torch.float32, device=dev),
+               torch.zeros(n_all, dtype=torch.int32, device=dev))
+        for o, v in zip(out, (hit, t, sb)):
+            o[sel] = v
+        hit, t, sb = out
+    return hit.reshape(shape), t.reshape(shape), sb.reshape(shape)
 
 
 def _plane(x: torch.Tensor, dtype, shape, device, name: str):
@@ -635,6 +662,122 @@ def segment_closest_hit_mxu(rays, cx, cy, cz, r, t_min, active=None,
 
 
 # ---------------------------------------------------------------------------
+# The sphere-group kernel
+# ---------------------------------------------------------------------------
+
+def group_order(sphere_params) -> torch.Tensor:
+    """The permutation ``group_scene`` sorts the spheres by: a STABLE
+    argsort of the (z-cell, x-cell) key of the centres (cells of 2 units),
+    as the JAX package's ``jnp.argsort``. Sorted position k holds sphere
+    ``group_order(...)[k]``."""
+    cx, cz = sphere_params[0], sphere_params[2]
+    cell = 2.0
+    key = torch.floor(cz / cell) * 4096 + torch.floor(cx / cell)
+    return torch.argsort(key, stable=True)
+
+
+def group_scene(sphere_params):
+    """Sort spheres into depth-band groups; a bounding sphere per group.
+
+    Input/output: the 10-tuple of ``sphere_params_from_scene``, reordered by
+    ``group_order`` and padded to a multiple of GROUP (pads repeat the last
+    centre with r = 0 and zero materials: by Cauchy-Schwarz their
+    discriminant is never positive). Returns (sorted_params, (gx, gy, gz,
+    gr)): per group the centre of the extent of its centres and the
+    largest distance from it plus |r|.
+    """
+    perm = group_order(sphere_params)
+    params = [a[perm] for a in sphere_params]
+    s = perm.shape[0]
+    pad = -s % GROUP
+    if pad:
+        params = [torch.cat([a, (a[-1:] if i < 3 else torch.zeros_like(
+            a[:1])).expand(pad)]) for i, a in enumerate(params)]
+    cx, cy, cz, r = params[:4]
+    n_g = cx.shape[0] // GROUP
+    bx, by, bz, br = (v.reshape(n_g, GROUP) for v in (cx, cy, cz, r))
+    gx = (bx.amin(dim=1) + bx.amax(dim=1)) * 0.5
+    gy = (by.amin(dim=1) + by.amax(dim=1)) * 0.5
+    gz = (bz.amin(dim=1) + bz.amax(dim=1)) * 0.5
+    ex, ey, ez = bx - gx[:, None], by - gy[:, None], bz - gz[:, None]
+    d = torch.sqrt(ex * ex + ey * ey + ez * ez)
+    gr = (d + torch.abs(br)).amax(dim=1)
+    return tuple(params), (gx, gy, gz, gr)
+
+
+def _check_groups(name: str, cx, group_params, device) -> int:
+    """The grouped kernel's sorted table and bounds -> the group count."""
+    s_pad = cx.shape[0]
+    if s_pad % GROUP:
+        raise ValueError(f"{name}: {s_pad} sorted spheres is not a multiple "
+                         f"of {GROUP} (group_scene pads them)")
+    n_g = s_pad // GROUP
+    if len(group_params) != 4:
+        raise ValueError(f"{name}: group_params must be (gx, gy, gz, gR)")
+    for k, g in zip(("gx", "gy", "gz", "gR"), group_params):
+        _block_array(name, k, g, torch.float32, (n_g,), device)
+    return n_g
+
+
+def segment_closest_hit_grouped_reference(rays, cx, cy, cz, r, group_params,
+                                          t_min, active=None):
+    """Plain PyTorch version of the grouped kernel: the t-space min loop
+    (ops/intersect.closest_hit) over the whole sorted table, with no cull
+    -- the bound is conservative, so the cull changes no result. Arguments
+    as ``segment_closest_hit_grouped``."""
+    from .intersect import closest_hit
+
+    _check_groups("closest_hit_grouped", cx, group_params, cx.device)
+    shape = rays[0].shape
+    o = torch.stack([p.reshape(-1) for p in rays[:3]], dim=1)
+    d = torch.stack([p.reshape(-1) for p in rays[3:]], dim=1)
+    t, idx, hit = closest_hit(o, d, torch.stack([cx, cy, cz], dim=1), r,
+                              _f32(t_min))
+    return _mask_inactive(hit.to(torch.int32).reshape(shape),
+                          t.reshape(shape), idx.reshape(shape), active)
+
+
+def segment_closest_hit_grouped(rays, cx, cy, cz, r, group_params, t_min,
+                                active=None, stats=None):
+    """Closest hit with per-warp sphere-group culling -> (hit_i, t,
+    sphere_idx), the index into the SORTED order.
+
+    cx/cy/cz/r: the sorted, padded geometry of ``group_scene`` (S_pad, a
+    multiple of GROUP); group_params: its (gx, gy, gz, gR), (S_pad/GROUP,)
+    each. stats: optional (2,) int64 CUDA tensor the kernel ADDS (groups
+    skipped, groups in all), counted per warp with an active lane, to.
+    Results are those of the unculled t-space loop (the bound is
+    conservative). CUDA tensors go through the hand-written kernel; CPU
+    tensors through the plain version.
+    """
+    ox = rays[0]
+    if ox.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("closest_hit_grouped: stats= is the kernel's "
+                             "counter (CUDA only)")
+        return segment_closest_hit_grouped_reference(
+            rays, cx, cy, cz, r, group_params, t_min, active)
+    name = "closest_hit_grouped"
+    shape, device, _, act = _check_launch(name, rays, cx, cy, cz, r, active,
+                                          GROUP_MAX_SPHERES)
+    n_g = _check_groups(name, cx, group_params, device)
+    if stats is not None:
+        _block_array(name, "stats", stats, torch.int64, (2,), device)
+    table = torch.stack([cx, cy, cz, r], dim=1).contiguous()
+    bounds = torch.stack(list(group_params), dim=1).contiguous()
+    hit, t, sb = _outputs(shape, device)
+    fn = kernels.entry("rtw_closest_hit_grouped")
+    err = fn(act.data_ptr(), *(p.data_ptr() for p in rays),
+             table.data_ptr(), bounds.data_ptr(), hit.data_ptr(),
+             t.data_ptr(), sb.data_ptr(),
+             None if stats is None else stats.data_ptr(), ox.numel(), n_g,
+             float(t_min), torch.cuda.current_stream(device).cuda_stream)
+    kernels.check(err, name)
+    kernels.LAUNCHES["closest_hit_grouped"] += 1
+    return hit, t, sb
+
+
+# ---------------------------------------------------------------------------
 # Dispatch and the segment's surface planes
 # ---------------------------------------------------------------------------
 
@@ -695,16 +838,19 @@ def trace_segment(rays, sphere_params, t_min, active=None,
     rays: 6 planar (R, 128) f32 planes; sphere_params: the 10-tuple of
     ``sphere_params_from_scene``; active: optional (R, 128) bool/i32
     plane; hit_kernel: "sublane" or "mxu"; table: the kernel's table.
-    group_params (the JAX package's sphere-group culling) is refused.
+    group_params: the bounds of ``group_scene``, whose SORTED params
+    ``sphere_params`` must then be; the grouped kernel runs
+    (``segment_closest_hit_grouped``) and ``hit_kernel`` and ``table`` are
+    not read.
     """
-    if group_params is not None:
-        raise NotImplementedError(
-            "trace_segment(group_params=...) is not ported yet (ROADMAP.md, "
-            "Queue 2, kernel 6: the sphere-group closest-hit kernel)")
     cx, cy, cz, r = sphere_params[:4]
-    hit_i, t_b, s_b = closest_hit_planar(rays, cx, cy, cz, r, t_min,
-                                         active=active, kernel=hit_kernel,
-                                         table=table)
+    if group_params is not None:
+        hit_i, t_b, s_b = segment_closest_hit_grouped(
+            rays, cx, cy, cz, r, group_params, t_min, active=active)
+    else:
+        hit_i, t_b, s_b = closest_hit_planar(rays, cx, cy, cz, r, t_min,
+                                             active=active,
+                                             kernel=hit_kernel, table=table)
     return resolve_segment(rays, sphere_params, hit_i, t_b, s_b)
 
 

@@ -61,12 +61,16 @@ SKY_BLUE = planar.SKY_BLUE  # main.cxx:49; cuda_impl.cu:125
 
 class _ClosestHitPlanar(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, ox, oy, oz, dx, dy, dz, centers, radii, t_min):
-        with torch.no_grad():
-            cx, cy, cz = (centers[:, k].contiguous() for k in range(3))
-            rays = tuple(p.contiguous() for p in (ox, oy, oz, dx, dy, dz))
-            hit_i, t, sb = segment_closest_hit(rays, cx, cy, cz,
-                                               radii.contiguous(), t_min)
+    def forward(ctx, ox, oy, oz, dx, dy, dz, centers, radii, t_min, known):
+        if known is not None:
+            t, sb, hit_i = known
+        else:
+            with torch.no_grad():
+                cx, cy, cz = (centers[:, k].contiguous() for k in range(3))
+                rays = tuple(p.contiguous()
+                             for p in (ox, oy, oz, dx, dy, dz))
+                hit_i, t, sb = segment_closest_hit(rays, cx, cy, cz,
+                                                   radii.contiguous(), t_min)
         ctx.save_for_backward(ox, oy, oz, dx, dy, dz, centers, radii, t, sb,
                               hit_i)
         ctx.mark_non_differentiable(sb, hit_i)
@@ -112,16 +116,19 @@ class _ClosestHitPlanar(torch.autograd.Function):
             acc = sum_by_winner(sb64, g4, centers.shape[0])
             g_centers, g_radii = acc[:, :3], acc[:, 3]
         return (-gcx, -gcy, -gcz, -t_safe * gcx, -t_safe * gcy,
-                -t_safe * gcz, g_centers, g_radii, None)
+                -t_safe * gcz, g_centers, g_radii, None, None)
 
 
-def closest_hit_planar(rays, geom, t_min):
+def closest_hit_planar(rays, geom, t_min, known=None):
     """Closest hit over planar rays via the hand-written kernel.
 
     rays: 6-tuple of (R, 128) f32 planes (ox oy oz dx dy dz); geom:
     (centers (S, 3), radii (S,)) -- the differentiable leaves; t_min:
     static. (The JAX package's fourth argument, the kernel's block height,
-    has no counterpart: a CUDA launch takes any R.)
+    has no counterpart: a CUDA launch takes any R.) known: the (t,
+    sphere_idx, hit_i) this call returned when it first ran on the same
+    rays, detached; given, the kernel is not launched again (a
+    checkpointed region that replays its forward, ops/wavefront_ad.py).
     Returns (t, sphere_idx, hit_i): (R, 128) planes (f32, i32, i32).
 
     Backward: implicit differentiation of the winning sphere's quadratic
@@ -129,7 +136,8 @@ def closest_hit_planar(rays, geom, t_min):
     dt = [(p-c).dc + r dr - (p-c).do - t (p-c).dd] / ((p-c).d).
     """
     centers, radii = geom
-    return _ClosestHitPlanar.apply(*rays, centers, radii, float(t_min))
+    return _ClosestHitPlanar.apply(*rays, centers, radii, float(t_min),
+                                   known)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,10 @@ together, and terminating rays deposit into the framebuffer.
     sublane, mxu or sorted kernel by ``hit_kernel``) and the fused
     shade+regen (ops/cuda_fused.py). ``mega="off"`` is the unrotated
     step ``segment(regen(state))``: the same closest-hit kernel, the rest
-    in plain PyTorch. On CPU tensors every kernel runs its plain version.
+    in plain PyTorch. ``mega="bounce"`` is the unrotated step with the
+    whole segment in ONE kernel (ops/cuda_mega.py: closest hit, winner
+    lookup, draws, shade, state update) after the plain ``regen``. On CPU
+    tensors every kernel runs its plain version.
   * Lane regeneration is not compacted: a lane owns a fixed sequence of
     task ids and advances independently -- no inter-lane communication.
     ``ownership="strided"``: lane l owns tasks l, l+P, l+2P, ...
@@ -69,6 +72,7 @@ from ..utils.device import resolve_device
 from . import cull
 from .cuda_fused import (ACT, N_BASE, pack_camera, regen, shade_regen,
                          shade_regen_reference, shade_update, state_dtypes)
+from .cuda_mega import mega_bounce, mega_bounce_reference
 from .cuda_segment import (LANES, MXU_MAX_SPHERES, closest_hit_planar,
                            hit_table, hit_table_padded, mxu_table,
                            resolve_params, resolve_segment,
@@ -127,7 +131,6 @@ def _check_carried(options: TraceOptions, n_workers: int, deposit,
         if options.hit_kernel == "sorted":
             raise ValueError("hit_kernel='sorted' is implemented for "
                              "mega='fused' and mega='off' only")
-        later("mega='bounce'", "Queue 2, kernel 8: the whole-bounce kernel")
     if options.resolve != "onehot":
         later(f"resolve={options.resolve!r}", "Queue 1: code the port "
               "does not carry -- the winner lookup is a direct index")
@@ -213,12 +216,13 @@ class Engine(NamedTuple):
     flush_every: int
     sphere_params: tuple   # cuda_segment.sphere_params_from_scene
     htable: torch.Tensor   # the closest-hit kernel's own table (hit_table,
-    #                        mxu_table or hit_table_padded by hit_kernel)
+    #                        mxu_table or hit_table_padded by hit_kernel;
+    #                        hit_table under mega="bounce")
     table: torch.Tensor    # cuda_segment.sphere_table
     camvec: torch.Tensor   # cuda_fused.pack_camera
     base_words: tuple
     t_min: float
-    mega: str          # "fused" or "off"
+    mega: str          # "fused", "off" or "bounce"
     hit_kernel: str    # "sublane", "mxu" or "sorted"
     sorted_rows: int   # rows of a cull block of the sorted kernel
     sorted_ladder: tuple
@@ -294,7 +298,9 @@ def build_engine(scene: Scene, cam: Camera, base_key, *, width: int,
     sphere_params = sphere_params_from_scene(scene)
     geom = sphere_params[:4]
     n_spheres = geom[0].shape[0]
-    if options.hit_kernel == "sorted":
+    if options.mega == "bounce":
+        htable = hit_table(*geom)  # the whole-bounce kernel's own loop
+    elif options.hit_kernel == "sorted":
         htable = hit_table_padded(*geom)
     elif options.hit_kernel == "mxu" and n_spheres <= MXU_MAX_SPHERES:
         htable = mxu_table(*geom)
@@ -341,8 +347,8 @@ def engine_regen(eng: Engine, state: tuple) -> tuple:
 def engine_prologue(eng: Engine) -> tuple:
     """The first lane state. The fused step is rotated -- it regenerates
     AFTER shading -- so there the initial task acquisition + camera rays
-    run once up front; the unrotated ``mega="off"`` step regenerates
-    first and starts from the all-idle state."""
+    run once up front; the unrotated steps (``mega="off"``, ``"bounce"``)
+    regenerate first and start from the all-idle state."""
     state = engine_initial_state(eng)
     return engine_regen(eng, state) if eng.mega == "fused" else state
 
@@ -379,12 +385,44 @@ def engine_closest_hit(eng: Engine, state: tuple, sortstate=None) -> tuple:
                               kernel=eng.hit_kernel, table=eng.htable)
 
 
+def mega_planes(state: tuple) -> tuple:
+    """The 16 planes of a lane state that the whole-bounce kernel takes,
+    in its order (ops/cuda_mega.mega_bounce)."""
+    (_nxt, _task, _sid, act, ox, oy, oz, dx, dy, dz, ax, ay, az, dep,
+     acr, acg, acb, k0, k1) = state[:N_BASE]
+    return (act, ox, oy, oz, dx, dy, dz, ax, ay, az, acr, acg, acb, dep,
+            k0, k1)
+
+
+def mega_kw(eng: Engine) -> dict:
+    """The whole-bounce kernel's keywords for this engine's frame."""
+    return dict(t_min=eng.t_min, **{k: eng.shade_kw[k] for k in (
+        "max_depth", "unit_sample", "phys_refract", "sky_bias")})
+
+
+def engine_mega(eng: Engine, state: tuple) -> tuple:
+    """``mega="bounce"``: the whole segment in one kernel (or, with
+    ``plain``, its plain version) on the 16 planes it takes -> the next
+    lane state (new tensors, no regeneration)."""
+    planes, kw = mega_planes(state), mega_kw(eng)
+    if eng.plain:
+        out = mega_bounce_reference(planes, eng.sphere_params, **kw)
+    else:
+        out = mega_bounce(planes, eng.sphere_params,
+                          tables=(eng.htable, eng.table), **kw)
+    (ox, oy, oz, dx, dy, dz, ax, ay, az, acr, acg, acb, keep, dep) = out
+    return (*state[:3], keep, ox, oy, oz, dx, dy, dz, ax, ay, az, dep,
+            acr, acg, acb, *state[17:])
+
+
 def engine_segment(eng: Engine, state: tuple, sortstate=None) -> tuple:
     """Trace and shade the state's active rays. ``mega="fused"``: closest
     hit, then the fused shade+regen; on the card the state is updated in
     place (and returned). ``mega="off"``: closest hit, winner lookup and
     shading with no regeneration, all but the closest hit in plain
-    PyTorch (new tensors)."""
+    PyTorch (new tensors). ``mega="bounce"``: ``engine_mega``."""
+    if eng.mega == "bounce":
+        return engine_mega(eng, state)
     hit, t, sb = engine_closest_hit(eng, state, sortstate)
     if eng.mega == "off":
         seg = resolve_segment(tuple(state[4:10]), eng.sphere_params, hit, t,
@@ -400,9 +438,9 @@ def engine_segment(eng: Engine, state: tuple, sortstate=None) -> tuple:
 
 
 def engine_step(eng: Engine, state: tuple, sortstate=None) -> tuple:
-    """One iteration: ``engine_segment``, under the unrotated
-    ``mega="off"`` step after a regen."""
-    if eng.mega == "off":
+    """One iteration: ``engine_segment``, under the unrotated steps
+    (``mega="off"`` and ``"bounce"``) after a regen."""
+    if eng.mega != "fused":
         state = engine_regen(eng, state)
     return engine_segment(eng, state, sortstate)
 
@@ -428,9 +466,9 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *,
 
     Keyword arguments (``build_engine`` takes them):
       width, height, spp, max_depth, camera_mode, options: the frame.
-        Of ``options`` the engine reads ``mega`` ("fused" or "off"),
-        ``hit_kernel``, ``sorted_rows``, ``sorted_ladder``, ``ownership``
-        and the estimator switches.
+        Of ``options`` the engine reads ``mega`` ("fused", "off" or
+        "bounce"), ``hit_kernel``, ``sorted_rows``, ``sorted_ladder``,
+        ``ownership`` and the estimator switches.
       base_key: the ``(k0, k1)`` base-key words (ops/threefry.key_words).
       pool_size: number of persistent ray lanes (rounded to layout
         multiple).
@@ -444,7 +482,7 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *,
         are moved there.
     return_stats: also return {"iters", "segments", "lanes"} occupancy
       counters (segments are summed on the device and read once at the
-      end; counted after the regen under ``mega="off"``).
+      end; counted after the regen under the unrotated steps).
 
     Work decomposition:
       * a TASK = up to TASK_SAMPLES consecutive samples of ONE pixel;
@@ -507,11 +545,11 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *,
     while more(state):
         sortstate = engine_sortstate(eng, state)
         for _ in range(eng.flush_every):
-            if eng.mega == "off":
+            if eng.mega != "fused":
                 state = engine_regen(eng, state)
             if return_stats:
-                # lanes that trace this iteration (the unrotated step
-                # regenerates first, so there it counts after the regen)
+                # lanes that trace this iteration (the unrotated steps
+                # regenerate first, so there it counts after the regen)
                 segs += state[ACT].sum()
             state = engine_segment(eng, state, sortstate)
         iters += eng.flush_every

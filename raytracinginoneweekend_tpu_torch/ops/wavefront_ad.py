@@ -1,0 +1,479 @@
+"""Regenerative differentiable wavefront: the reverse-mode occupancy fix.
+
+The port's copy of ``raytracinginoneweekend_tpu/ops/wavefront_ad.py``. The
+fixed-depth AD engines (ops/integrate.py, ops/integrate_planar.py) run
+every lane for ``max_depth`` bounces; at depth 50 most lanes of a bounce
+are dead paths. This engine keeps a POOL of L lanes busy instead: a lane
+whose path ended takes the next (pixel, sample) ray it owns, in the same
+iteration, and the whole loop is differentiable.
+
+  * Lane pool of L = R*128 planar lanes; lane l owns rays l, l+L, 2L, ...
+    (strided ownership, no communication between lanes). The (pixel,
+    sample) ids of all N rays are laid out wave-major as (W, R, 128)
+    planes (W = ceil(N/L), only the last wave padded), and the camera
+    rays of all N rays (and, under stratified sampling, their first-bounce
+    scatter vectors) are generated ONCE from them up front, as the planar
+    engine does. A lane that acquires its next ray reads its ray by INDEX
+    into those flat arrays. (The JAX package selects the ids with a W-way
+    one-hot, which avoids gathers on a TPU, and generates the camera rays
+    of the acquiring lanes every iteration; each ray's values are the same
+    elementwise function of its (pixel, sample), so the results are the
+    same, and an iteration here saves the hundreds of small launches that
+    the camera rays' threefry hashing takes.)
+  * Radiance deposit: a WAVE-INDEXED LEDGER. Ray (w, lane) has the unique
+    cell w*L + lane; only a miss carries radiance (absorb and depth-out
+    are black), so a ray deposits at most once, at the iteration it dies,
+    and the deposit is a WRITE of the unique cells (``index_copy``; lanes
+    that do not deposit write a zero into their own dump cell past the
+    ledger). Its backward is the matching read. The JAX package adds a
+    one-hot mask over the wave axis instead; onto a zero cell both give
+    the same value.
+  * The closest hit is ops/integrate_planar.closest_hit_planar: the
+    hand-written kernel (csrc/closest_hit.cu) under a
+    ``torch.autograd.Function``. The winner's sphere/material parameters
+    are ONE ``index_select`` of the differentiable (S, 10) table (backward
+    ``index_add_``), as in the planar engine. The scatter and sky math is
+    the planar engine's (scatter_planar_ad, shade_geometry_planar) and the
+    per-pixel mean reduces in the same sample order, so pixels are
+    BIT-invariant to pool_size and agree with render_pixels_planar to
+    float32 reassociation.
+  * Iterations run in EPOCHS of ``epoch_len`` under
+    ``torch.utils.checkpoint`` (non-reentrant): backward memory is
+    O(state * epochs) plus the kernel's three output planes per iteration,
+    which are kept OUTSIDE the checkpoint (recorded on the first run,
+    replayed when backward recomputes the epoch; ``_HitTape``), so the
+    backward never launches the kernel. The JAX package skips drained
+    epochs with ``lax.cond``; here the loop is eager and stops once the
+    pool has drained, with one device->host read per epoch.
+  * A tuned flat budget (``iters``) runs exactly that many iterations with
+    no host read: ``remat="none"`` keeps every intermediate,
+    ``remat="step"`` checkpoints each iteration, ``"auto"`` picks by the
+    JAX package's memory estimate. Rays not finished within the budget
+    are dropped (black): validate a budget with ``wavefront_ad_done``.
+
+Nothing here writes in place into a tensor that autograd saved.
+RNG discipline is ops/rng.py's (pixel, sample, tag) contract.
+"""
+
+from __future__ import annotations
+
+import functools
+import warnings
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..config import TraceOptions
+from ..models.camera import Camera
+from ..models.scene import Scene
+from . import planar, rng
+from .integrate_planar import (_material_table, _pick_rows,
+                               closest_hit_planar, scatter_planar_ad,
+                               shade_geometry_planar)
+from .planar import SKY_BLUE, SKY_WHITE
+
+LANES = 128
+
+EPOCH_LEN = 16  # inner bounces per rematerialised epoch
+
+# Lane-state tuple layout (all (R, 128) planes):
+#   0 nxtw  (i32)  next wave index this lane may acquire
+#   1 wcur  (i32)  wave index of the task in flight
+#   2 active (bool)
+#   3..8  ox oy oz dx dy dz
+#   9..11 ax ay az
+#   12 depth (i32)
+#   13 k0  14 k1  (per-ray threefry key words, i32 bit patterns)
+
+# Rough per-(lane, iteration) residual footprint of an iteration that is
+# not rematerialised (kernel outputs, gathered params, the scatter chain):
+# sizes the remat="auto" choice. The JAX package's values.
+_RES_BYTES_PER_LANE_ITER = 260
+_NOREMAT_CAP_BYTES = 1536 << 20
+
+
+class _HitTape:
+    """The closest hit's outputs of one checkpointed region, in call order:
+    recorded (detached) on its first run, replayed when backward
+    recomputes the region, so the kernel runs once per iteration."""
+
+    def __init__(self):
+        self.hits = []
+        self.pos = 0
+
+    def closest_hit(self, rays, geom, t_min):
+        known = self.hits[self.pos] if self.pos < len(self.hits) else None
+        out = closest_hit_planar(rays, geom, t_min, known=known)
+        if known is None:
+            self.hits.append(tuple(x.detach() for x in out))
+        self.pos += 1
+        return out
+
+
+def _ray_tables(pid_flat, sid_flat, cam: Camera, base_words, *,
+                width: int, height: int, camera_mode: str,
+                options: TraceOptions, spp: int):
+    """Every ray's camera ray and key words (and, under stratified
+    sampling, its first-bounce scatter vector), as flat (W*L,) arrays in
+    the wave-major ray order: what ``_regen`` reads a lane's next ray
+    from."""
+    pid, sid = pid_flat[None, :], sid_flat[None, :]
+    planes = planar.camera_rays(cam, pid, sid, base_words, width, height,
+                                camera_mode, sampling=options.sampling,
+                                spp=spp)
+    if options.sampling == "stratified":
+        planes = planes + planar.strat0_scatter_planes(
+            planes[6], planes[7], pid, sid, base_words, spp,
+            options.scatter_sample == "unit")
+    return tuple(p.reshape(-1) for p in planes)
+
+
+def _regen(state, rays, *, n: int, w: int):
+    """Dead lanes acquire their next strided ray: its camera ray and key
+    words from the ``_ray_tables`` arrays ``rays``. Returns (state,
+    strat0): strat0 is None, or the acquired rays' first-bounce scatter
+    vectors (valid on the acquiring lanes, which are exactly the lanes
+    that shade at depth 0 this iteration)."""
+    (nxtw, wcur, active, ox, oy, oz, dx, dy, dz, ax, ay, az, depth,
+     k0, k1) = state
+    lanes = nxtw.numel()
+    lane = torch.arange(lanes, dtype=torch.int32,
+                        device=nxtw.device).reshape(nxtw.shape)
+
+    idle = ~active
+    can = nxtw < w
+    # Only the LAST wave is padded; a lane whose next ray id falls in the
+    # pad is out of work for good (later waves' ids only grow).
+    ray = nxtw * lanes + lane
+    in_range = ray < n
+    acquire = idle & can & in_range
+    nxtw = torch.where(idle & can & ~in_range, torch.full_like(nxtw, w),
+                       nxtw)
+
+    at = torch.clamp(ray, 0, n - 1).reshape(-1).to(torch.int64)
+    nox, noy, noz, ndx, ndy, ndz, rk0, rk1, *strat0 = (
+        r[at].reshape(nxtw.shape) for r in rays)
+
+    one = torch.ones_like(ax)
+    state = (torch.where(acquire, nxtw + 1, nxtw),
+             torch.where(acquire, nxtw, wcur), active | acquire,
+             torch.where(acquire, nox, ox), torch.where(acquire, noy, oy),
+             torch.where(acquire, noz, oz), torch.where(acquire, ndx, dx),
+             torch.where(acquire, ndy, dy), torch.where(acquire, ndz, dz),
+             torch.where(acquire, one, ax), torch.where(acquire, one, ay),
+             torch.where(acquire, one, az),
+             torch.where(acquire, torch.zeros_like(depth), depth),
+             torch.where(acquire, rk0, k0), torch.where(acquire, rk1, k1))
+    return state, (tuple(strat0) or None)
+
+
+def _shade_deposit(table, options: TraceOptions, max_depth: int, state,
+                   khit, ledger, strat0=None):
+    """One bounce downstream of the kernel + ledger deposit on a miss.
+
+    table: ``_material_table(scene)``; ledger: (3, W*L + L) f32, the wave
+    cells then one dump cell per lane. strat0: the first-bounce scatter
+    vectors of this iteration's ``_regen`` (valid on the depth == 0
+    lanes), substituted there under sampling="stratified".
+    """
+    (nxtw, wcur, active, ox, oy, oz, dx, dy, dz, ax, ay, az, depth,
+     k0, k1) = state
+    shape = ox.shape
+    lanes = ox.numel()
+
+    t, sb, hit_i = khit
+    params = table.index_select(0, sb.reshape(-1).to(torch.int64))
+
+    def col(i):
+        return params[:, i].reshape(shape)
+
+    mt = col(4).to(torch.int32)
+    alr, alg, alb_ = col(5), col(6), col(7)
+    fz, io = col(8), col(9)
+
+    hit, px, py, pz, nx, ny, nz = shade_geometry_planar(
+        (ox, oy, oz, dx, dy, dz), khit, (col(0), col(1), col(2), col(3)))
+
+    # Per-bounce randomness: per-LANE depth plane (tasks sit at mixed
+    # depths), same (pixel, sample, bounce) contract as every engine.
+    rvx, rvy, rvz, ru = planar.bounce_draws(
+        k0, k1, depth, options.scatter_sample == "unit")
+    if strat0 is not None:
+        svx, svy, svz = strat0
+        m0 = depth == 0
+        rvx = torch.where(m0, svx, rvx)
+        rvy = torch.where(m0, svy, rvy)
+        rvz = torch.where(m0, svz, rvz)
+
+    ndx, ndy, ndz, valid, uy = scatter_planar_ad(
+        (dx, dy, dz), (nx, ny, nz), (mt, fz, io), (rvx, rvy, rvz, ru),
+        options)
+
+    miss_now = active & ~hit
+    scatter_now = active & hit & valid
+    keep = scatter_now & (depth + 1 < max_depth)
+
+    # sky (cuda_impl.cu:123-126 / main.cxx:47-50), unclamped mix
+    sky_bias = 0.5 if options.sky == "cuda" else 1.0
+    tsky = 0.5 * uy + sky_bias
+    miss_f = miss_now.to(torch.float32)
+    cr = miss_f * ax * (SKY_WHITE[0] * (1.0 - tsky) + SKY_BLUE[0] * tsky)
+    cg = miss_f * ay * (SKY_WHITE[1] * (1.0 - tsky) + SKY_BLUE[1] * tsky)
+    cb = miss_f * az * (SKY_WHITE[2] * (1.0 - tsky) + SKY_BLUE[2] * tsky)
+
+    # Wave-indexed deposit: ray (wcur, lane) writes its unique cell; the
+    # other lanes write a zero into their own dump cell.
+    lane = torch.arange(lanes, dtype=torch.int64, device=ox.device)
+    w_cells = ledger.shape[1] - lanes
+    cell = torch.where(miss_now.reshape(-1),
+                       wcur.reshape(-1).to(torch.int64) * lanes + lane,
+                       w_cells + lane)
+    ledger = torch.index_copy(ledger, 1, cell, torch.stack(
+        [cr.reshape(-1), cg.reshape(-1), cb.reshape(-1)]))
+
+    ox = torch.where(keep, px, ox)
+    oy = torch.where(keep, py, oy)
+    oz = torch.where(keep, pz, oz)
+    dx = torch.where(keep, ndx, dx)
+    dy = torch.where(keep, ndy, dy)
+    dz = torch.where(keep, ndz, dz)
+    ax = torch.where(keep, ax * alr, ax)
+    ay = torch.where(keep, ay * alg, ay)
+    az = torch.where(keep, az * alb_, az)
+    if options.rr_terminate:
+        # RR path termination: the shared contract with the survival
+        # weights held constant (rng.rr_terminate_update). A killed lane
+        # regenerates next iteration, so the saving is real in forward
+        # and backward.
+        ax, ay, az, keep = rng.rr_terminate_update(
+            k0, k1, depth, ax, ay, az, keep, rr_start=options.rr_start,
+            rr_qmin=options.rr_qmin, rr_scale=options.rr_scale)
+    depth = torch.where(keep, depth + 1, depth)
+    state = (nxtw, wcur, keep, ox, oy, oz, dx, dy, dz, ax, ay, az,
+             depth, k0, k1)
+    return state, ledger
+
+
+def trace_wavefront_ad(scene: Scene, cam: Camera, pid_waves, sid_waves,
+                       base_key, *, width: int, height: int, spp: int,
+                       max_depth: int, camera_mode: str,
+                       options: TraceOptions, n: int,
+                       epoch_len: int = EPOCH_LEN,
+                       iters: int | None = None, remat: str = "auto",
+                       return_done: bool = False):
+    """Run the regenerative pool -> ledger planes ((W, R, 128) r, g, b).
+
+    pid_waves/sid_waves: (W, R, 128) i32 ray-id planes (wave-major flat
+    ray order); n: true ray count (the tail of the last wave is pad);
+    base_key: the (k0, k1) base-key words. (The JAX package's ``rows``, its
+    kernel's block height, has no counterpart: a CUDA launch takes any R.)
+
+    iters: bounce-iteration budget.
+      * None (default) = run until the pool drains (at most the
+        guaranteed-complete W * max_depth iterations), in epochs of
+        ``epoch_len`` under torch.utils.checkpoint, one device->host read
+        per epoch.
+      * an int = a TUNED budget run flat, with no host read: rays not
+        finished within it are dropped from the ledger (black); validate
+        it with ``wavefront_ad_done``.
+
+    remat (flat mode only): "step" = checkpoint per iteration; "none" = no
+    checkpoint (backward keeps every intermediate, ~_RES_BYTES_PER_LANE_ITER
+    bytes a lane and iteration, and replays nothing); "auto" = "none" when
+    that estimate fits _NOREMAT_CAP_BYTES, else "step".
+
+    return_done: also return (done, iterations): done is True iff every
+    ray completed within the budget (the pool drained); iterations is the
+    budget run (epoch mode: the worked epochs times epoch_len, the exact
+    flat budget that completes this batch at epoch granularity).
+    """
+    if remat not in ("auto", "none", "step"):
+        raise ValueError(f"unknown remat mode: {remat!r}")
+    if epoch_len < 1:
+        raise ValueError(f"epoch_len must be positive, got {epoch_len}")
+    w, r_rows, _ = pid_waves.shape
+    lanes = r_rows * LANES
+    device = pid_waves.device
+    geom = (scene.centers, scene.radii)
+    table = _material_table(scene)
+    base_words = tuple(int(x) for x in base_key)
+    rays_all = _ray_tables(pid_waves.reshape(-1), sid_waves.reshape(-1), cam,
+                           base_words, width=width, height=height,
+                           camera_mode=camera_mode, options=options, spp=spp)
+    shade = functools.partial(_shade_deposit, table, options, max_depth)
+
+    def run(state, ledger, n_iters: int, tape):
+        """``n_iters`` pool iterations: regen -> closest hit -> shade."""
+        if tape is not None:
+            tape.pos = 0
+        for _ in range(n_iters):
+            state, strat0 = _regen(state, rays_all, n=n, w=w)
+            rays = state[3:9]
+            khit = (tape.closest_hit(rays, geom, options.t_min)
+                    if tape is not None
+                    else closest_hit_planar(rays, geom, options.t_min))
+            state, ledger = shade(state, khit, ledger, strat0=strat0)
+        return state, ledger
+
+    def checkpointed(state, ledger, n_iters: int):
+        fn = functools.partial(run, n_iters=n_iters, tape=_HitTape())
+        return checkpoint(fn, state, ledger, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    shape = (r_rows, LANES)
+    zero = torch.zeros(shape, dtype=torch.float32, device=device)
+    izero = torch.zeros(shape, dtype=torch.int32, device=device)
+    state = (izero, izero, torch.zeros(shape, dtype=torch.bool,
+                                       device=device),
+             zero, zero, zero, zero + 1.0, zero, zero,
+             zero, zero, zero, izero, izero, izero)
+    ledger = torch.zeros((3, w * lanes + lanes), dtype=torch.float32,
+                         device=device)
+
+    def work_left(state) -> bool:
+        """Any lane tracing, or any lane with unacquired rays (lanes out
+        of rays park nxtw at W)? One device->host read."""
+        return bool((state[2].any() | (state[0] < w).any()).item())
+
+    if iters is None:
+        n_epochs = -(-(w * max_depth) // epoch_len)
+        n_active = 0
+        for _ in range(n_epochs):
+            if not work_left(state):
+                break
+            state, ledger = checkpointed(state, ledger, epoch_len)
+            n_active += epoch_len
+    else:
+        if remat == "auto":
+            remat = ("none" if iters * lanes * _RES_BYTES_PER_LANE_ITER
+                     <= _NOREMAT_CAP_BYTES else "step")
+        for _ in range(iters):
+            if remat == "none":
+                state, ledger = run(state, ledger, 1, None)
+            else:
+                state, ledger = checkpointed(state, ledger, 1)
+        n_active = iters
+
+    out = tuple(ledger[c, :w * lanes].reshape(w, r_rows, LANES)
+                for c in range(3))
+    if return_done:
+        return out, (not work_left(state), n_active)
+    return out
+
+
+def _wave_layout(pixel_ids, spp: int, pool_size: int):
+    """(pid_waves, sid_waves, rows, n): the engine's wave-major ray layout
+    -- the ONE definition of the ray ordering and padding (ray-major
+    pixel*spp + sample, pool rounded to the JAX package's kernel block
+    multiple and capped at the ray count, only the LAST wave padded).
+    Shared by the renderer and the budget prober."""
+    dev = pixel_ids.device
+    p = pixel_ids.shape[0]
+    n = p * spp
+    rows = _pick_rows(min(n, pool_size))
+    blk = rows * LANES
+    lanes = min(pool_size, n)
+    lanes = -(-lanes // blk) * blk
+    r_rows = lanes // LANES
+    w = -(-n // lanes)
+
+    pid_flat = torch.repeat_interleave(pixel_ids.to(torch.int32), spp)
+    sid_flat = torch.arange(spp, dtype=torch.int32, device=dev).repeat(p)
+    pad = w * lanes - n
+    if pad:
+        zpad = torch.zeros(pad, dtype=torch.int32, device=dev)
+        pid_flat = torch.cat([pid_flat, zpad])
+        sid_flat = torch.cat([sid_flat, zpad])
+    return (pid_flat.reshape(w, r_rows, LANES),
+            sid_flat.reshape(w, r_rows, LANES), rows, n)
+
+
+def render_pixels_wavefront_ad_impl(scene: Scene, cam: Camera, pixel_ids,
+                                    base_key, *, width: int, height: int,
+                                    spp: int, max_depth: int,
+                                    camera_mode: str, options: TraceOptions,
+                                    pool_size: int = 1 << 15,
+                                    epoch_len: int = EPOCH_LEN,
+                                    iters: int | None = None,
+                                    remat: str = "auto",
+                                    differentiable: bool = True,
+                                    debug_check_complete: bool = False):
+    """Render a flat pixel chunk -> (P, 3) linear radiance means.
+
+    Drop-in for integrate_planar.render_pixels_planar_impl (same ray
+    order, the same pixels up to float32 reassociation) with wavefront
+    occupancy in forward and backward. pixel_ids: a (P,) i32 tensor on the
+    device to render on; base_key: the (k0, k1) base-key words.
+    pool_size: requested lane count (rounded to the JAX package's block
+    multiple, capped at the ray count); epoch_len, iters, remat: see
+    ``trace_wavefront_ad``.
+
+    With a TUNED integer ``iters`` budget, rays not finished within it
+    render BLACK with no error. ``debug_check_complete=True`` runs the
+    done check (a second, forward-only pass) and warns when the budget
+    dropped rays.
+    """
+    del differentiable  # the pool is always the autograd-safe engine
+    p = pixel_ids.shape[0]
+    pid_waves, sid_waves, _rows, n = _wave_layout(pixel_ids, spp, pool_size)
+    kw = dict(width=width, height=height, spp=spp, max_depth=max_depth,
+              camera_mode=camera_mode, options=options, n=n)
+    lr, lg, lb = trace_wavefront_ad(
+        scene, cam, pid_waves, sid_waves, base_key, epoch_len=epoch_len,
+        iters=iters, remat=remat, **kw)
+
+    if debug_check_complete and iters is not None:
+        with torch.no_grad():
+            _, (done, _need) = trace_wavefront_ad(
+                scene, cam, pid_waves, sid_waves, base_key, iters=iters,
+                remat="none", return_done=True, **kw)
+        if not done:
+            warnings.warn(
+                f"wavefront_ad: iteration budget {iters} TRUNCATED rays of "
+                "this batch -- dropped rays render black; re-probe with "
+                "wavefront_ad_budget and pad by whole epochs", stacklevel=2)
+
+    def reduce(ch):
+        flat = ch.reshape(-1)[:n]
+        return flat.reshape(p, spp).sum(dim=1) / float(spp)
+
+    return torch.stack([reduce(lr), reduce(lg), reduce(lb)], dim=-1)
+
+
+# The JAX package jits the impl under this name; PyTorch runs eagerly.
+render_pixels_wavefront_ad = render_pixels_wavefront_ad_impl
+
+
+def _probe(scene: Scene, cam: Camera, pixel_ids, base_key, *, width: int,
+           height: int, spp: int, max_depth: int, camera_mode: str,
+           options: TraceOptions, pool_size: int = 1 << 15,
+           iters: int | None, epoch_len: int = EPOCH_LEN):
+    pid_waves, sid_waves, _rows, n = _wave_layout(pixel_ids, spp, pool_size)
+    with torch.no_grad():
+        _, aux = trace_wavefront_ad(
+            scene, cam, pid_waves, sid_waves, base_key, width=width,
+            height=height, spp=spp, max_depth=max_depth,
+            camera_mode=camera_mode, options=options, n=n,
+            epoch_len=epoch_len, iters=iters, remat="none",
+            return_done=True)
+    return aux
+
+
+def wavefront_ad_done(scene, cam, pixel_ids, base_key, *, iters: int,
+                      **kw) -> bool:
+    """Forward-only budget validator: True iff every ray of this batch
+    completes within ``iters`` pool iterations."""
+    return _probe(scene, cam, pixel_ids, base_key, iters=iters, **kw)[0]
+
+
+def wavefront_ad_budget(scene, cam, pixel_ids, base_key, **kw) -> int:
+    """The flat-scan iteration budget that completes this batch: one
+    forward run to the drain, counting worked epochs (a contiguous
+    prefix, so the count is the budget at epoch_len granularity). Pad by
+    a couple of epochs before reusing it across step keys."""
+    done, n_active = _probe(scene, cam, pixel_ids, base_key, iters=None,
+                            **kw)
+    if not done:
+        raise RuntimeError("wavefront_ad_budget: the pool did not drain "
+                           "within W * max_depth iterations")
+    return int(n_active)

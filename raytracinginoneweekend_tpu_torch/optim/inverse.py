@@ -28,9 +28,7 @@ PyTorch's idiom where it differs from the JAX package's:
 
 Not carried yet (each raises ``NotImplementedError`` naming ROADMAP.md):
 the gradient surrogates (``boundary_samples``, ``secondary_samples``,
-``rr_grad``), ``mesh`` (multi-GPU) and ``engine="wavefront"`` (the
-regenerative AD pool, which is also what ``"auto"`` picks above the
-crossover depth).
+``rr_grad``) and ``mesh`` (multi-GPU).
 """
 
 from __future__ import annotations
@@ -151,13 +149,13 @@ def adam_state_from_numpy(optimizer: torch.optim.Optimizer, params: dict,
 AD_ENGINE_AUTO_DEPTH = 32
 """max_depth above which 'auto' picks the regenerative wavefront engine.
 The value is the JAX package's, carried so that 'auto' resolves to the
-same engine in both packages. It was not measured on an NVIDIA card: the
-regenerative AD pool is not ported yet, so there is no crossover to
-measure (PERF.md, open questions)."""
+same engine in both packages. scripts/torch_ad_crossover.py measures the
+two engines on an NVIDIA card (PERF.md: on an H100 the pool at its default
+size is the slower one at every depth measured, 16 to 50)."""
 
 AD_ENGINE_AUTO_DEPTH_RR = 28
-"""The same threshold with rr_terminate=True; carried, not measured on an
-NVIDIA card (see AD_ENGINE_AUTO_DEPTH)."""
+"""The same threshold with rr_terminate=True; the JAX package's value
+(see AD_ENGINE_AUTO_DEPTH)."""
 
 
 def resolve_ad_engine(max_depth: int, rr_terminate: bool = False) -> str:
@@ -195,16 +193,14 @@ def _render_batch(full_scene, cam, pixel_ids, base_key, *, width, height,
     device: callers refuse ``mesh`` before they get here)."""
     if engine == "auto":
         engine = resolve_ad_engine(max_depth, options.rr_terminate)
-        if engine == "wavefront":
-            _later(f"engine='auto' at max_depth={max_depth} (it resolves "
-                   "to the regenerative AD pool; ask for engine='planar' "
-                   "or 'tiled')", "Queue 1 item 9: ops/wavefront_ad.py")
     if engine == "planar":
         from ..ops.integrate_planar import render_pixels_planar_impl
         impl = render_pixels_planar_impl
     elif engine == "wavefront":
-        _later("engine='wavefront' (the regenerative AD pool)",
-               "Queue 1 item 9: ops/wavefront_ad.py")
+        # The regenerative pool (ops/wavefront_ad.py): wavefront occupancy
+        # under reverse mode, the deep-path engine.
+        from ..ops.wavefront_ad import render_pixels_wavefront_ad_impl
+        impl = render_pixels_wavefront_ad_impl
     elif engine == "tiled":
         impl = render_pixels_impl
     else:
@@ -213,8 +209,8 @@ def _render_batch(full_scene, cam, pixel_ids, base_key, *, width, height,
                   max_depth=max_depth, camera_mode=camera_mode,
                   options=options, differentiable=True)
     if engine_opts:
-        # Engine-specific static knobs (e.g. the planar engine's
-        # sample_offset / spp_strata).
+        # Engine-specific knobs (e.g. the planar engine's sample_offset /
+        # spp_strata, the regenerative pool's pool_size / iters / remat).
         kwargs.update(engine_opts)
     if engine == "tiled":
         kwargs["wave_spp"] = spp
@@ -238,8 +234,9 @@ def render_loss(params: dict, scene: Scene, cam: Camera, target_pixels,
 
     engine: "auto" (resolve_ad_engine picks by max_depth: the fixed-depth
     planar engine up to the crossover depth; above it the regenerative
-    pool, not ported yet), "planar" ((R, 128) planes + the hand-written
-    closest-hit kernel under autograd, ops/integrate_planar.py), or
+    pool), "planar" ((R, 128) planes + the hand-written closest-hit kernel
+    under autograd, ops/integrate_planar.py), "wavefront" (the
+    regenerative pool with the same kernel, ops/wavefront_ad.py) or
     "tiled" (the (N, 3) engine). Same RNG contract, radiance agrees to
     float32 reassociation.
 

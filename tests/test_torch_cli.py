@@ -119,9 +119,9 @@ def test_cli_device_default_is_cuda_and_unported_engines_raise(tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pcli.main(["render", *small, "--device", "cpu", "--engine",
                        engine])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pcli.main(["render", *small, "--device", "cpu", "--fusion",
-                   "bounce"])
+    # the whole-bounce step is carried (tests/test_torch_mega.py)
+    assert pcli.main(["render", *small, "--device", "cpu", "--fusion",
+                      "bounce"]) == 0
     with pytest.raises(SystemExit):  # not ported: no such subcommand/flag
         pcli.main(["serve"])
     with pytest.raises(SystemExit):
@@ -237,12 +237,22 @@ def test_fit_cpu_writes_a_checkpoint_and_resumes(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--boundary-samples", "4"], ["--secondary-samples", "2"],
-    ["--rr-grad"], ["--ad-engine", "wavefront"],
-    ["--depth", "40", "--ad-engine", "auto"],
-], ids=["boundary", "secondary", "rr_grad", "wavefront", "auto_deep"])
+    ["--rr-grad"],
+], ids=["boundary", "secondary", "rr_grad"])
 def test_fit_refuses_what_is_not_ported(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pcli.main(["fit", *FIT_FLAGS, "--steps", "1", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--ad-engine", "wavefront"],
+    ["--depth", "40", "--ad-engine", "auto"],
+    ["--rr-terminate"],  # the CLI's depth 32 with rr: auto -> the pool
+], ids=["wavefront", "auto_deep", "rr_terminate_at_the_default_depth"])
+def test_fit_runs_the_regenerative_pool(flags, capsys):
+    assert pcli.main(["fit", *FIT_FLAGS, "--steps", "2", *flags]) == 0
+    said = capsys.readouterr().out
+    assert "albedo: max abs err vs truth" in said and "loss:" in said
 
 
 def test_options_pick_the_kernel_on_a_cuda_device_only():
@@ -348,9 +358,16 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch, tmp_path):
                       "simple-cuda", "--width", "8", "--height", "8",
                       "--spp", "1", "--depth", "2", "--device", "cpu",
                       "--out", str(tmp_path / "tiled.ppm")]) == 0
+    assert pcli.main(["render", "--fusion", "bounce", "--scene",
+                      "simple-cuda", "--width", "8", "--height", "8",
+                      "--spp", "1", "--depth", "2", "--device", "cpu",
+                      "--out", str(tmp_path / "bounce.ppm")]) == 0
+    assert pcli.main(["fit", *FIT_FLAGS, "--steps", "1", "--ad-engine",
+                      "wavefront"]) == 0
     assert kernels.LAUNCHES == dict.fromkeys(
         ("closest_hit", "shade_regen", "intersect", "closest_hit_list",
-         "closest_hit_sorted", "closest_hit_mxu"), 0)
+         "closest_hit_sorted", "closest_hit_mxu", "mega_bounce",
+         "closest_hit_grouped"), 0)
     assert not os.path.exists(os.path.join(kernels.BUILD_DIR, "lock"))
 
 

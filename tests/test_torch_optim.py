@@ -352,10 +352,7 @@ def test_engine_policy_and_parameter_helpers():
     ({"secondary_samples": 2}, "item 11"),
     ({"rr_grad": True}, "item 11"),
     ({"mesh": object()}, "item 12"),
-    ({"engine": "wavefront"}, "item 9"),
-    ({"engine": "auto", "max_depth": 33}, "item 9"),
-], ids=["boundary", "secondary", "rr_grad", "mesh", "wavefront",
-        "auto_above_crossover"])
+], ids=["boundary", "secondary", "rr_grad", "mesh"])
 def test_what_this_slice_leaves_out_raises(kwargs, match):
     _, psc, _, pcam, ids, target = _setup()
     params = poptim.params_from_scene(psc, ("albedo",))

@@ -187,13 +187,15 @@ def test_resolve_params_bit_exact():
 
 
 def test_unported_kernel_layouts_raise():
-    """What is still refused: the sphere-group kernel. The mxu and sorted
-    layouts are carried (tests/test_torch_segment_variants.py); the sorted
-    kernel needs a sort state, so the dispatcher points to its wrapper."""
+    """Every layout is carried (the mxu, sorted and grouped ones:
+    tests/test_torch_segment_variants.py); what is refused is a call that
+    does not give a layout what it needs: the sphere-group kernel takes
+    the sorted, padded table of ``group_scene``, and the sorted kernel a
+    sort state, so the dispatcher points to its wrapper."""
     o, d, _ = _rays("simple")
     rays = tuple(torch.from_numpy(x.copy()) for x in (*o, *d))
     pp = pseg.sphere_params_from_scene(pscene.simple_scene_cuda("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="group_scene"):
         pseg.trace_segment(rays, pp, T_MIN, group_params=(None,) * 4)
     with pytest.raises(ValueError, match="segment_closest_hit_sorted"):
         pseg.closest_hit_planar(rays, *pp[:4], T_MIN, kernel="sorted")

@@ -28,7 +28,15 @@ Tolerances, and why:
     kernel 1's to 5e-5, 2e-3 and 1e-2 (measured: 9e-6, 3.6e-4, 9.3e-4);
   * ``sorted_cull_state``: ``oc`` and ``suf`` rtol 1e-6 (block sums in
     another order), ``perm`` equal wherever neighbouring keys differ by
-    more than 1e-5, ``yb`` equal.
+    more than 1e-5, ``yb`` equal;
+  * the grouped kernel (``group_scene`` + ``trace_segment(group_params=)``):
+    the sorted tables equal, the bounds rtol 1e-6 (a square root of sums of
+    squares); against the JAX package's grouped and ungrouped segments the
+    assertions of tests/test_pallas_intersect.py (hit equal, t rtol 2e-4 /
+    atol 1e-3, material planes equal on hit lanes) -- the t-space candidate
+    and the q-space one of kernel 1 round differently; against the port's
+    own t-space loop over the sorted table, which is its plain version,
+    bit-equal.
 """
 
 import jax.numpy as jnp
@@ -338,3 +346,119 @@ def test_constants_equal():
     assert pseg.UNROLL == jseg.UNROLL and pseg.LANES == jseg.LANES
     assert pseg._SORT_KEY_MARGIN == jseg._SORT_KEY_MARGIN
     assert N == R * 128
+
+
+def test_group_scene_matches_jax(params):
+    jp, pp = params
+    jsorted, jgroups = jseg.group_scene(jp)
+    psorted, pgroups = pseg.group_scene(pp)
+    assert len(psorted) == 10 and psorted[0].shape[0] % pseg.GROUP == 0
+    for a, b, c in zip(psorted, jsorted, pp):
+        assert a.dtype == c.dtype
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for a, b in zip(pgroups, jgroups):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+    perm = pseg.group_order(pp).numpy()
+    s = pp[0].shape[0]
+    assert sorted(perm.tolist()) == list(range(s))
+    for a, b in zip(psorted, pp):  # the sorted params are a permutation
+        np.testing.assert_array_equal(a.numpy()[:s], b.numpy()[perm])
+    # every sphere lies inside its group's bound
+    cx, cy, cz, r = (x.numpy().reshape(-1, pseg.GROUP) for x in psorted[:4])
+    gx, gy, gz, gr = (g.numpy()[:, None] for g in pgroups)
+    dist = np.sqrt((cx - gx) ** 2 + (cy - gy) ** 2 + (cz - gz) ** 2)
+    assert (dist + np.abs(r) <= gr * (1 + 1e-6)).all()
+
+
+def _jax_test_rays(mod):
+    """The rays of tests/test_pallas_intersect.py's grouped test."""
+    rng = np.random.default_rng(5)
+    rays = [rng.normal(size=(8, 128)).astype(np.float32) for _ in range(6)]
+    if mod is torch:
+        return tuple(torch.from_numpy(x) for x in rays)
+    return tuple(jnp.asarray(x) for x in rays)
+
+
+def _grouped_vs_ungrouped(got, want, active=None):
+    """tests/test_pallas_intersect.py's assertions between a grouped and an
+    ungrouped segment (on the active lanes)."""
+    got = {k: np.asarray(v) for k, v in got.items()}
+    want = {k: np.asarray(v) for k, v in want.items()}
+    act = np.ones_like(got["hit"], bool) if active is None else active
+    np.testing.assert_array_equal(got["hit"][act], want["hit"][act])
+    hit = act & (want["hit"] > 0)
+    assert hit.sum() > 100
+    np.testing.assert_allclose(got["t"][hit], want["t"][hit], rtol=2e-4,
+                               atol=1e-3)
+    for k in ("ar", "ag", "ab", "fz", "io", "mt"):
+        np.testing.assert_array_equal(got[k][hit], want[k][hit], k)
+
+
+def test_grouped_matches_jax_and_the_ungrouped_segment(params):
+    jp, pp = params
+    jsorted, jgroups = jseg.group_scene(jp)
+    psorted, pgroups = pseg.group_scene(pp)
+    want = jseg.trace_segment(_jax_test_rays(jnp), jp, T_MIN, rows=8)
+    want_g = jseg.trace_segment(_jax_test_rays(jnp), jsorted, T_MIN, rows=8,
+                                group_params=jgroups)
+    got = pseg.trace_segment(_jax_test_rays(torch), psorted, T_MIN,
+                             group_params=pgroups)
+    _grouped_vs_ungrouped(got, want)
+    _grouped_vs_ungrouped(got, want_g)
+    # the port's own ungrouped segment on the unsorted scene
+    _grouped_vs_ungrouped(got, pseg.trace_segment(_jax_test_rays(torch), pp,
+                                                  T_MIN))
+
+
+def test_grouped_on_engine_like_rays_with_an_active_plane(params):
+    """Camera rays and ground restarts (tests/test_torch_segment.py's rays)
+    with inactive lanes and a wholly inactive block: the port's convention
+    on inactive lanes, kernel 1's hits, and the plain t-space loop's bits
+    (the sphere index mapped back through the sort)."""
+    _jp, pp = params
+    psorted, pgroups = pseg.group_scene(pp)
+    o, d, active = _rays("huge", seed=12)
+    act = torch.from_numpy(active)
+    hit, t, sb = pseg.segment_closest_hit_grouped(
+        _planes(o, d, torch), *psorted[:4], pgroups, T_MIN, active=act)
+    assert not hit.numpy()[~active].any()
+    assert (t.numpy()[~active] == np.float32(1e30)).all()
+    assert not sb.numpy()[~active].any()
+    from raytracinginoneweekend_tpu_torch.ops.intersect import closest_hit
+    o3 = torch.from_numpy(o.reshape(3, -1).T.copy())
+    d3 = torch.from_numpy(d.reshape(3, -1).T.copy())
+    t_ref, i_ref, h_ref = closest_hit(
+        o3, d3, torch.stack(psorted[:3], dim=1), psorted[3], T_MIN)
+    flat = active.reshape(-1)
+    np.testing.assert_array_equal(hit.numpy().reshape(-1)[flat],
+                                  h_ref.numpy()[flat])
+    np.testing.assert_array_equal(t.numpy().reshape(-1)[flat],
+                                  t_ref.numpy()[flat])
+    np.testing.assert_array_equal(sb.numpy().reshape(-1)[flat],
+                                  i_ref.numpy()[flat])
+    h1, t1, s1 = pseg.segment_closest_hit(_planes(o, d, torch), *pp[:4],
+                                          T_MIN, active=act)
+    both = active & (hit.numpy() > 0) & (h1.numpy() > 0)
+    differ = active & (hit.numpy() != h1.numpy())
+    assert differ.sum() <= 1e-3 * active.sum(), int(differ.sum())
+    perm = pseg.group_order(pp).numpy()
+    same = both & (perm[np.minimum(sb.numpy(), perm.size - 1)] == s1.numpy())
+    assert same.sum() >= 0.999 * both.sum()
+    np.testing.assert_allclose(t.numpy()[same], t1.numpy()[same], rtol=2e-4,
+                               atol=1e-3)
+
+
+def test_grouped_refuses_what_the_kernel_does_not_take(params):
+    _jp, pp = params
+    psorted, pgroups = pseg.group_scene(pp)
+    rays = _jax_test_rays(torch)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pseg.segment_closest_hit_grouped(rays, *pp[:4], pgroups, T_MIN)
+    with pytest.raises(ValueError, match="gx"):
+        pseg.segment_closest_hit_grouped(
+            rays, *psorted[:4], (pgroups[0][:3],) + pgroups[1:], T_MIN)
+    with pytest.raises(ValueError, match="CUDA only"):
+        pseg.segment_closest_hit_grouped(
+            rays, *psorted[:4], pgroups, T_MIN,
+            stats=torch.zeros(2, dtype=torch.int64))
+    assert pseg.GROUP == jseg.GROUP

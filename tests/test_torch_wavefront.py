@@ -205,7 +205,6 @@ def test_ray_id_overflow_raises():
 
 
 UNPORTED = {
-    "mega_bounce": dict(options=rt.TraceOptions(mega="bounce")),
     "resolve_split": dict(options=rt.TraceOptions(resolve="split")),
     "resolve_f32": dict(options=rt.TraceOptions(resolve="f32")),
     "reserve_frac": dict(reserve_frac=0.1),
@@ -224,10 +223,11 @@ def test_unported_options_raise(name):
     (dict(rr_terminate=True), "rr_terminate"),
     (dict(ownership="tile"), "ownership='tile'"),
     (dict(hit_kernel="sorted"), "hit_kernel='sorted'"),
-], ids=["rr", "tile", "sorted"])
+    (dict(sampling="stratified"), "stratified"),
+], ids=["rr", "tile", "sorted", "stratified"])
 def test_whole_bounce_combinations_keep_the_jax_errors(changes, match):
     """What the JAX engine refuses with a ValueError under mega='bounce'
-    is refused with the same error here, before the not-ported notice."""
+    is refused with the same error here."""
     for mod, fn in ((rt, _tiny), (jconfig, _tiny_jax)):
         with pytest.raises(ValueError, match=match):
             fn(options=mod.TraceOptions(mega="bounce", **changes))
