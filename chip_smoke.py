@@ -13,11 +13,23 @@ not build, launch or agree with its plain PyTorch version, when the main
 path did not go through a kernel, or when any phase's check fails.
 
 Phases (one JSON object per line on standard output):
+  closest_hit_build  for each K of closest_hit's split loop, read from the
+                   built library (cuobjdump -res-usage -sass): registers,
+                   stack and local memory, the routines it calls, among
+                   them any sqrt slow path, and whether every sqrt sits
+                   behind the disc >= 0 branch (required). ptxas's own
+                   report (-Xptxas -v) goes to standard error.
   device           card, versions, the kernels' build time.
   kernels          each hand-written kernel against its plain PyTorch
                    version on the card: real mid-frame lane states of the
                    huge scene at the main path's pool shape, synthetic edge
-                   cases for closest_hit, and shade_regen stepped beside
+                   cases for closest_hit (``ties_and_grazes`` on a table of
+                   its own at every K: identical spheres in different
+                   partitions of the split loop, an exact graze, a ray that
+                   misses everything), closest_hit at every K (1 ... 32)
+                   bit-equal with its plain version and timed (the K sweep)
+                   at the two pools and the train shape, and shade_regen
+                   stepped beside
                    its plain version for a few dozen iterations in five
                    configurations; closest_hit again as the training path
                    launches it (every lane of the planar AD engine's own
@@ -141,7 +153,10 @@ Tolerances, and why:
                 do the same IEEE float32 operations in the same order (the
                 kernel is built with -fmad=false), so they agree to the
                 bit; the allowance is for a compiler that orders one sum
-                differently.
+                differently. In the K sweep and on ties_and_grazes: bit-
+                equal on every lane (hit, sphere index, the bits of t), as
+                the split loop's lexicographic reduce over (q, index)
+                returns the one-thread loop's result for any K.
   closest_hit_list, closest_hit_sorted, closest_hit_mxu
                 against their plain versions: closest_hit's tolerance, for
                 the same reason. Against closest_hit on the same rays: the
@@ -276,6 +291,14 @@ PEAK_BYTES_PER_S = 3.35e12
 # for b and |oc|^2, 1 sub for c, 3 for the discriminant, sqrt, negate, 2
 # roots, 2 window compares + 2 selects, 1 compare + 2 selects for the min).
 CH_FLOPS_PER_SPHERE = 27
+# closest_hit's guarded loop: a pair whose discriminant is < 0 stops after
+# it and the guard (3 sub, 5 for b, 6 for c, 3 for the discriminant, 1
+# compare); only a pair with disc >= 0 goes on to the sqrt, the roots and
+# the min. The bound from that count (closest_hit_needed) stands beside
+# the one that charges every pair CH_FLOPS_PER_SPHERE.
+CH_MISS_FLOPS = 18
+CH_NEEDED = ("bound_needed_ms", "issue_ceiling_ms", "pairs",
+             "pairs_disc_ge_0")
 # shade_regen: float operations per lane (surface point and normal, shade,
 # sky, state update, camera ray): a generous count; the integer hashing is
 # not in the float peak's table and the bound is the bytes anyway.
@@ -403,10 +426,73 @@ def compare_closest_hit(torch, rays, geom, t_min, active, table=None,
             "out": (hk, tk, sk)}
 
 
+def closest_hit_needed(rays, geom, active, t_bytes: float) -> dict:
+    """closest_hit's bound from the work this input needs: CH_FLOPS_PER_
+    SPHERE for each active (lane, sphere) pair whose discriminant is >= 0,
+    CH_MISS_FLOPS for the rest, against PEAK_F32_FLOPS -> bound_needed_ms;
+    the same operations at the float32 issue rate that -fmad=false leaves
+    (one instruction each: half the peak, which counts an FMA as two) ->
+    issue_ceiling_ms. Either is the larger of that time and ``t_bytes``."""
+    from raytracinginoneweekend_tpu_torch.closest_hit_checks import (
+        disc_pairs)
+
+    n_ge, n_pairs = disc_pairs(rays, *geom, active)
+    t_ops = (n_ge * CH_FLOPS_PER_SPHERE
+             + (n_pairs - n_ge) * CH_MISS_FLOPS) / PEAK_F32_FLOPS
+    return {"pairs": n_pairs, "pairs_disc_ge_0": n_ge,
+            "bound_needed_ms": max(t_ops, t_bytes) * 1e3,
+            "issue_ceiling_ms": max(2 * t_ops, t_bytes) * 1e3}
+
+
+def synthetic_ties_and_grazes(torch, dev):
+    """ties_and_grazes through closest_hit at every K and through its plain
+    version: each bit-equal with the exact expectation."""
+    from raytracinginoneweekend_tpu_torch import closest_hit_checks as chk
+    from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
+
+    rays, geom, t_min, want = chk.ties_and_grazes(dev)
+    out = {"plain": chk.bit_diff(seg.segment_closest_hit_reference(
+        rays, *geom, t_min), want)}
+    for k in seg.CH_SPLITS:
+        got = seg.segment_closest_hit(rays, *geom, t_min, split=k)
+        torch.cuda.synchronize()
+        out[f"K{k}"] = chk.bit_diff(got, want)
+    for name, res in out.items():
+        require(not any(res.values()), f"closest_hit ({name}) misses the "
+                f"exact result of ties_and_grazes: {res}")
+    return out
+
+
+def closest_hit_sweep(torch, rays, geom, t_min, active, table=None):
+    """closest_hit at every K of its split loop (``CH_SPLITS``) against its
+    plain version on one input, to the bit on every lane (hit, sphere
+    index, the bits of t), and each K's device time -> {"K<k>": {...},
+    "picked": the K that closest_hit_split gives these lanes}."""
+    from raytracinginoneweekend_tpu_torch.closest_hit_checks import bit_diff
+    from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
+
+    want = seg.segment_closest_hit_reference(rays, *geom, t_min, active)
+    out = {}
+    for k in seg.CH_SPLITS:
+        def run(k=k):
+            return seg.segment_closest_hit(rays, *geom, t_min, active=active,
+                                           table=table, split=k)
+
+        diff = bit_diff(run(), want)
+        require(not any(diff.values()), f"closest_hit at K = {k} is not "
+                f"bit-equal with its plain version: {diff}")
+        out[f"K{k}"] = dict(diff, ms=device_ms(run))
+    out["picked"] = seg.closest_hit_split(
+        rays[0].numel(), torch.cuda.get_device_properties(
+            rays[0].device).multi_processor_count)
+    return out
+
+
 def synthetic_closest_hit(torch, geom, t_min, lanes: int, kernel=None,
                           plain=None, what="closest_hit"):
     """Edge cases for closest_hit (or another whole-table kernel, see
-    ``compare_closest_hit``) on the huge scene -> {name: result}."""
+    ``compare_closest_hit``) on the huge scene -> {name: result}; for
+    closest_hit itself also ``ties_and_grazes`` at every K."""
     dev = geom[0].device
     cmp = functools.partial(compare_closest_hit, torch, kernel=kernel,
                             plain=plain)
@@ -462,8 +548,11 @@ def synthetic_closest_hit(torch, geom, t_min, lanes: int, kernel=None,
     for name, res in out.items():
         require(res["ok"], f"{what} disagrees on {name}: "
                 f"{ {k: v for k, v in res.items() if k != 'out'} }")
-    return {name: {k: v for k, v in res.items() if k != "out"}
-            for name, res in out.items()}
+    out = {name: {k: v for k, v in res.items() if k != "out"}
+           for name, res in out.items()}
+    if kernel is None:
+        out["ties_and_grazes"] = synthetic_ties_and_grazes(torch, dev)
+    return out
 
 
 INT_PLANES = (0, 1, 2, 3, 13)
@@ -594,7 +683,11 @@ def kernels_phase(rt, torch, nvidia_smi: str):
         ch[pool] = dict(res, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                         bound_ms=max(t_ops, t_bytes) * 1e3,
                         bound_by="operations" if t_ops >= t_bytes
-                        else "bytes", lanes=eng.lanes, spheres=n_sph)
+                        else "bytes", lanes=eng.lanes, spheres=n_sph,
+                        **closest_hit_needed(rays, geom, act, t_bytes),
+                        k_sweep=closest_hit_sweep(torch, rays, geom,
+                                                  eng.t_min, act,
+                                                  table=eng.htable))
 
         n_state = len(state)
         outbuf = tuple(torch.empty_like(p) for p in state)
@@ -660,17 +753,22 @@ def kernels_phase(rt, torch, nvidia_smi: str):
          "plain_ms": ch[main_pool]["plain_ms"],
          "bound_ms": ch[main_pool]["bound_ms"],
          "bound_by": ch[main_pool]["bound_by"], "library_ms": None,
+         **{k: ch[main_pool][k] for k in CH_NEEDED},
          "lanes": ch[main_pool]["lanes"],
          "active_lanes": ch[main_pool]["active"],
+         "split": ch[main_pool]["k_sweep"]["picked"],
+         "k_sweep_ms": {k: v["ms"] for k, v in
+                        ch[main_pool]["k_sweep"].items() if k != "picked"},
          "at_pool_1m": {k: ch[1 << 20][k] for k in (
              "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "lanes",
-             "active",
-             "max_abs_err", "int_mismatch")},
+             "active", *CH_NEEDED,
+             "max_abs_err", "int_mismatch", "k_sweep")},
          "at_train_shape": {k: ch["train_shape"]["after_3_bounces"][k]
-                            for k in ("ms", "plain_ms", "bound_ms",
-                                      "bound_by", "lanes", "shape",
-                                      "max_abs_err", "max_rel_err",
-                                      "int_mismatch")}},
+                            for k in ("ms", "call_ms", "plain_ms",
+                                      "bound_ms", "bound_by", *CH_NEEDED,
+                                      "lanes", "shape", "max_abs_err",
+                                      "max_rel_err", "int_mismatch",
+                                      "k_sweep")}},
         {"name": "shade_regen", "route": "cuda",
          "source": "raytracinginoneweekend_tpu_torch/csrc/shade_regen.cu",
          "replaces": "raytracinginoneweekend_tpu/ops/pallas_fused.py:87",
@@ -1393,9 +1491,12 @@ def closest_hit_train_shape(rt, torch):
         del res["out"]
         require(res["ok"] and res["int_mismatch"] == 0, "closest_hit "
                 f"disagrees on the training path's planes ({tag}): {res}")
-        res["ms"] = cuda_time_ms(
-            lambda: cuda_segment.segment_closest_hit(rays, *geom, t_min),
-            iters=20, queue_behind=True)
+        def run():
+            cuda_segment.segment_closest_hit(rays, *geom, t_min)
+
+        res["ms"] = cuda_time_ms(run, iters=20, queue_behind=True)
+        res["call_ms"] = cuda_time_ms(run, iters=20)
+        res["k_sweep"] = closest_hit_sweep(torch, rays, geom, t_min, None)
         res["plain_ms"] = cuda_time_ms(
             lambda: cuda_segment.segment_closest_hit_reference(
                 rays, *geom, t_min, None), warmup=1, iters=3)
@@ -1404,6 +1505,7 @@ def closest_hit_train_shape(rt, torch):
         t_bytes = (lanes * 36 + n_sph * 16) / PEAK_BYTES_PER_S
         res.update(lanes=lanes, shape=list(rays[0].shape), spheres=n_sph,
                    bound_ms=max(t_ops, t_bytes) * 1e3,
+                   **closest_hit_needed(rays, geom, None, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes")
         out[tag] = res
     return out
@@ -3111,6 +3213,87 @@ def cli_fit_phase(rt, torch, nvidia_smi: str):
 MEAN_TOL = 1e-3
 
 
+def closest_hit_sass(lib: str) -> dict:
+    """Facts of closest_hit_kernel, read from a built library with
+    cuobjdump: for each K (or "K?" for a kernel without the template),
+    registers, stack and local memory (-res-usage; a spill would show as
+    local memory), and from the SASS its instruction count, its CALLs, the
+    sqrt slow-path calls among them (a CALL within 8 instructions after a
+    MUFU.RSQ: the IEEE sqrtf leaves its fast path for arguments outside the
+    normal range, a negative one included), and ``sqrt_only_where_disc_ge_
+    0``: for every MUFU.RSQ, the nearest branch before it is ``@!Pn BRA``
+    and Pn was last set by ``FSETP.GE ... Rx, RZ`` on the register Rx that
+    the MUFU.RSQ takes -- a negative discriminant branches around the sqrt
+    and its slow path."""
+    import re
+    from raytracinginoneweekend_tpu_torch import kernels
+
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+
+    def dump(flag):
+        return subprocess.run([cuobjdump, flag, lib], capture_output=True,
+                              text=True, check=True).stdout
+
+    def key(name):
+        if "closest_hit_kernel" not in name:
+            return None
+        k = re.search(r"closest_hit_kernelILi(\d+)E", name)
+        return f"K{k.group(1)}" if k else "K?"
+
+    out, cur = {}, None
+    for line in dump("-res-usage").splitlines():
+        m = re.search(r"Function (\S+?):?\s*$", line)
+        if m:
+            cur = key(m.group(1))
+            continue
+        if cur is not None and "REG:" in line:
+            use = dict(re.findall(r"(\w+):(\d+)", line))
+            out[cur] = {"registers": int(use["REG"]),
+                        "stack_bytes": int(use["STACK"]),
+                        "local_bytes": int(use["LOCAL"])}
+            cur = None
+    code, cur = {}, None
+    for line in dump("-sass").splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = key(m.group(1))
+            cur = code.setdefault(k, []) if k else None
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if cur is not None and m:
+            cur.append(m.group(1))
+
+    def guarded(ins, r):
+        src = re.match(r"MUFU\.RSQ R\d+, (R\d+)", ins[r])
+        bra = next((i for i in range(r - 1, -1, -1)
+                    if re.search(r"\bBRA\b", ins[i])), None)
+        if src is None or bra is None:
+            return False
+        p = re.match(r"@!(P\d) BRA", ins[bra])
+        if p is None:
+            return False
+        setp = next((i for i in range(bra - 1, -1, -1)
+                     if re.match(rf"\S+ {p.group(1)},", ins[i])), None)
+        return setp is not None and re.match(
+            rf"FSETP\.GEU?\.AND {p.group(1)}, PT, {src.group(1)}, RZ",
+            ins[setp]) is not None
+
+    for name, ins in code.items():
+        rsq = [i for i, x in enumerate(ins) if x.startswith("MUFU.RSQ")]
+        slow = {i for r in rsq for i in range(r + 1, min(r + 9, len(ins)))
+                if ins[i].startswith("CALL")}
+        out.setdefault(name, {}).update(
+            sass_instructions=len(ins),
+            calls=sum(x.startswith("CALL") for x in ins),
+            mufu_rsq=len(rsq), sqrt_slow_path_calls=len(slow),
+            sqrt_only_where_disc_ge_0=bool(rsq) and all(
+                guarded(ins, r) for r in rsq))
+    require(bool(out) and all("registers" in v and "mufu_rsq" in v
+                              for v in out.values()),
+            f"cuobjdump report of closest_hit_kernel incomplete: {out}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3140,9 +3323,20 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    kernels.build(verbose=True)
+    libs = kernels.build(verbose=True)
     for name in kernels.ENTRIES:
         kernels.entry(name)
+    try:
+        sass = closest_hit_sass(libs["closest_hit.cu"])
+        emit({"phase": "closest_hit_build", "kernels": sass})
+        require(sorted(sass) == sorted(f"K{k}" for k in (1, 2, 4, 8, 16, 32))
+                and all(v["sqrt_only_where_disc_ge_0"]
+                        for v in sass.values()),
+                "closest_hit_kernel takes a sqrt that a negative "
+                f"discriminant can reach: {sass}")
+    except Failed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
     emit({"phase": "device", "card": nvidia_smi,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,

@@ -49,8 +49,9 @@ __device__ __forceinline__ float rtw_min(float a, float b) {
 // ---- ops/cuda_segment.py: the closest-hit candidate --------------------
 
 // One sphere's candidate for one ray, in q-space (q = t * |d|^2): the one
-// copy of the arithmetic that closest_hit, closest_hit_list and
-// closest_hit_sorted share (plain version: cuda_segment._candidates).
+// copy of the arithmetic that closest_hit_list, closest_hit_sorted and
+// mega_bounce share, and that closest_hit's rtw_closest_guarded repeats
+// to the bit (plain version: cuda_segment._candidates).
 // (x, y, z) origin, (vx, vy, vz) direction, a = |d|^2, q_min = t_min * a,
 // c4 = (cx, cy, cz, r*r). sqrtf of a negative discriminant is NaN and every
 // comparison with NaN is false, so a miss falls through to RTW_BIG; a pad
@@ -69,6 +70,41 @@ __device__ __forceinline__ float rtw_candidate(float x, float y, float z,
     const float q0 = nb - sq;
     const float q1 = nb + sq;
     return (q0 > q_min) ? q0 : ((q1 > q_min) ? q1 : RTW_BIG);
+}
+
+// rtw_candidate folded into the strict-`<` running min (q_b, s_b) of
+// sphere s, with the square root taken only where disc = b*b - a*c >= 0
+// (closest_hit's loop; closest_hit_list, closest_hit_sorted and
+// mega_bounce keep rtw_candidate). Bit-equal with
+// `q = rtw_candidate(...); if (q < q_b) { q_b = q; s_b = s; }`: where
+// disc >= 0 (an exact graze, disc == 0 or -0, included, as in the TPU
+// kernel) it does the same operations in the same order; where disc < 0
+// or is NaN, rtw_candidate's sqrtf is NaN, both roots are NaN, every
+// comparison is false and it returns RTW_BIG, which can never pass a
+// strict `<` against q_b <= RTW_BIG -- so skipping the update is exact.
+// What it saves: an IEEE sqrtf (-fmad=false, no fast math) of a negative
+// argument leaves MUFU.RSQ's fast path for a slow-path subroutine, and
+// most sphere tests miss.
+__device__ __forceinline__ void rtw_closest_guarded(
+        float x, float y, float z, float vx, float vy, float vz, float a,
+        float q_min, float4 c4, int s, float& q_b, int& s_b) {
+    const float ocx = x - c4.x;
+    const float ocy = y - c4.y;
+    const float ocz = z - c4.z;
+    const float b = ocx * vx + ocy * vy + ocz * vz;
+    const float c = ocx * ocx + ocy * ocy + ocz * ocz - c4.w;
+    const float disc = b * b - a * c;
+    if (disc >= 0.0f) {
+        const float sq = sqrtf(disc);
+        const float nb = -b;
+        const float q0 = nb - sq;
+        const float q1 = nb + sq;
+        const float q = (q0 > q_min) ? q0 : ((q1 > q_min) ? q1 : RTW_BIG);
+        if (q < q_b) {
+            q_b = q;
+            s_b = s;
+        }
+    }
 }
 
 // One sphere's candidate for one ray in t-space, with the guarded

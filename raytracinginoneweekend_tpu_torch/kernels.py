@@ -42,9 +42,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRIES = {
     # act ox oy oz dx dy dz | table4 | hit t sb | n_lanes n_spheres t_min
-    # | stream
+    # split | stream
     "rtw_closest_hit": ("closest_hit.cu",
-                        [_P] * 7 + [_P] + [_P] * 3 + [_I, _I, _F, _P]),
+                        [_P] * 7 + [_P] + [_P] * 3 + [_I, _I, _F, _I, _P]),
     # config struct | state in ptrs | state out ptrs | hit t sb | table
     # | camera | n_lanes n_spheres | stream
     "rtw_shade_regen": ("shade_regen.cu",

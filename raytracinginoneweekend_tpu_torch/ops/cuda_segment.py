@@ -11,12 +11,18 @@ the sphere-group kernel (``group_scene``, ``segment_closest_hit_grouped``,
 
 KERNEL NOTE. ``segment_closest_hit`` on CUDA tensors launches
 ``csrc/closest_hit.cu``, which replaces the Pallas TPU kernel
-``pallas_segment.py::_kernel``. It is bound by float32 arithmetic (about
-27 operations per lane and sphere against 40 bytes per lane); the design
-keeps the sphere table in shared memory, one thread per lane, every warp
-reading one sphere at a time as a broadcast (see the source's header).
-``segment_closest_hit_reference`` is its plain PyTorch version: the same
-candidate arithmetic in the same order, vectorised over (lanes, spheres).
+``pallas_segment.py::_kernel``. It is bound by float32 instruction issue
+(about 27 operations per lane and sphere against 40 bytes per lane; under
+``-fmad=false`` each is its own instruction). The design keeps the sphere
+table in shared memory and splits each ray's sphere loop over K threads
+(``closest_hit_split`` picks K so that the grid fills the card: one thread
+per lane left the default pool's 32768 lanes at 8 warps an SM), reduces
+the K partials lexicographically over (q, sphere index) with warp
+shuffles, and takes the square root only where the discriminant is
+non-negative (see the source's header). The result is the one-thread
+loop's to the bit for every K. ``segment_closest_hit_reference`` is its
+plain PyTorch version: the same candidate arithmetic in the same order,
+vectorised over (lanes, spheres).
 
 KERNEL NOTES, the four siblings (each source's header has the detail):
   * ``segment_closest_hit_list`` launches ``csrc/closest_hit_list.cu``
@@ -59,6 +65,7 @@ skipped block stale.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -120,7 +127,8 @@ def _candidates(x, y, z, vx, vy, vz, a, q_min, cx, cy, cz, rr):
     """Every sphere's candidate for every ray in q-space (q = t*|d|^2),
     broadcast over (rays, spheres): the one copy of the arithmetic that
     the plain versions of closest_hit, closest_hit_list and
-    closest_hit_sorted share (csrc/rtw_common.cuh rtw_candidate)."""
+    closest_hit_sorted share (csrc/rtw_common.cuh rtw_candidate, and
+    rtw_closest_guarded, closest_hit's bit-equal guarded form)."""
     ocx = x - cx
     ocy = y - cy
     ocz = z - cz
@@ -271,7 +279,32 @@ def _outputs(shape, device):
             torch.empty(shape, dtype=torch.int32, device=device))
 
 
-def segment_closest_hit(rays, cx, cy, cz, r, t_min, active=None, table=None):
+# csrc/closest_hit.cu: K, the threads that share a ray's sphere loop, is a
+# power of two up to a warp.
+CH_SPLITS = (1, 2, 4, 8, 16, 32)
+# Threads an SM that closest_hit_split aims the grid at (chip_smoke.py's
+# sweep of K at the kernel's three shapes; PERF.md).
+CH_THREADS_PER_SM = 1024
+
+
+def closest_hit_split(n_lanes: int, n_sms: int) -> int:
+    """K for ``csrc/closest_hit.cu``: the smallest power of two, at most
+    32, for which ``n_lanes * K`` threads put ``CH_THREADS_PER_SM`` threads
+    on each of the card's ``n_sms`` SMs (with 132 SMs: 8 at the default
+    pool's 32768 lanes, 2 at the train shape's 131072, 1 at 2^20)."""
+    k = CH_SPLITS[0]
+    while k < CH_SPLITS[-1] and n_lanes * k < n_sms * CH_THREADS_PER_SM:
+        k *= 2
+    return k
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def segment_closest_hit(rays, cx, cy, cz, r, t_min, active=None, table=None,
+                        split=None):
     """Closest hit over planar rays -> (hit_i, t, sphere_idx).
 
     rays: 6-tuple of (R, 128) f32 planes; cx/cy/cz/r: (S,) f32 sphere
@@ -279,8 +312,14 @@ def segment_closest_hit(rays, cx, cy, cz, r, t_min, active=None, table=None):
     lanes active); table: optional ``hit_table(cx, cy, cz, r)`` made once
     by a caller that launches many times on one scene. CUDA tensors go
     through the hand-written kernel on the current stream (no
-    synchronise); CPU tensors through the plain version.
+    synchronise); CPU tensors through the plain version. ``split`` forces
+    the kernel's K (one of ``CH_SPLITS``) in place of
+    ``closest_hit_split``'s; it is for measuring the kernel and changes no
+    result.
     """
+    if split is not None and split not in CH_SPLITS:
+        raise ValueError(f"closest_hit: split must be one of {CH_SPLITS}; "
+                         f"got {split!r}")
     ox = rays[0]
     if ox.device.type == "cpu":
         return segment_closest_hit_reference(rays, cx, cy, cz, r, t_min,
@@ -290,11 +329,13 @@ def segment_closest_hit(rays, cx, cy, cz, r, t_min, active=None, table=None):
     if table is None:
         table = hit_table(cx, cy, cz, r)
     _check_table("closest_hit", table, n_spheres, device)
+    if split is None:
+        split = closest_hit_split(ox.numel(), _sm_count(device.index))
     hit, t, sb = _outputs(shape, device)
     fn = kernels.entry("rtw_closest_hit")
     err = fn(act.data_ptr(), *(p.data_ptr() for p in rays),
              table.data_ptr(), hit.data_ptr(), t.data_ptr(), sb.data_ptr(),
-             ox.numel(), n_spheres, float(t_min),
+             ox.numel(), n_spheres, float(t_min), split,
              torch.cuda.current_stream(device).cuda_stream)
     kernels.check(err, "closest_hit")
     kernels.LAUNCHES["closest_hit"] += 1
