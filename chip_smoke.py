@@ -19,6 +19,9 @@ Phases (one JSON object per line on standard output):
                    them any sqrt slow path, and whether every sqrt sits
                    behind the disc >= 0 branch (required). ptxas's own
                    report (-Xptxas -v) goes to standard error.
+  shade_regen_build  for each instantiation of kernel 2 (entry, lanes a
+                   thread, camera-ray form), read from the built library:
+                   registers, stack and spill bytes, local loads and stores.
   device           card, versions, the kernels' build time.
   kernels          each hand-written kernel against its plain PyTorch
                    version on the card: real mid-frame lane states of the
@@ -31,7 +34,14 @@ Phases (one JSON object per line on standard output):
                    at the two pools and the train shape, and shade_regen
                    stepped beside
                    its plain version for a few dozen iterations in five
-                   configurations; closest_hit again as the training path
+                   configurations; kernel 2's three entries (shade_regen,
+                   shade_only, regen_only) each against its plain version
+                   at 32768 and 2^20 lanes and on the stratified + rr
+                   arm's state, every launch shape and camera-ray form
+                   with and without PDL bit-equal with the picked one,
+                   shade_only then regen_only bit-equal with shade_regen,
+                   with their times, the fused entry's launch-shape sweep
+                   and the PDL A/B on the closest_hit -> shade_regen pair; closest_hit again as the training path
                    launches it (every lane of the planar AD engine's own
                    (1024, 128) ray planes, no active plane, at bounce 0
                    and after three bounces); intersect (the (N, 3) closest
@@ -90,7 +100,13 @@ Phases (one JSON object per line on standard output):
                    depth 50, thin lens, default options -- through the CLI
                    (writes a PNG into the kernels' build directory) with the
                    launch counts read around it, then timed at two pool
-                   sizes and for the two estimator arms.
+                   sizes with the epoch replayed as a CUDA graph (the
+                   engine's default) and eagerly, in turns: frames
+                   bit-equal, launches equal to the iterations with the
+                   replays counted, the host's microseconds an iteration
+                   (an epoch enqueued eagerly and a replay, behind a long
+                   matrix product) and the graph's programmatic (PDL)
+                   edges; and timed for the two estimator arms.
   coherent_path    the coherent engines at full width (the same frame as
                    main_path), each once through the CLI with the launch
                    counts read around it, then timed in the process and
@@ -100,7 +116,9 @@ Phases (one JSON object per line on standard output):
                    ``--hit-kernel sorted --ownership tile``; ``--hit-kernel
                    sorted``; ``--hit-kernel mxu``; ``--fusion off`` (at
                    2^20 lanes); the sorted and mxu kernels again at 2^20
-                   lanes.
+                   lanes; the single pool shaded in plain PyTorch (the
+                   unfused step with kernel 2's plain halves), which the
+                   dual engine's frame is held against.
   grouped_path     the sphere-group kernel (closest_hit_grouped) on the
                    rays it was designed for: the camera rays of the full
                    frame's first pool (2^20 lanes, tile ownership) and a
@@ -112,11 +130,12 @@ Phases (one JSON object per line on standard output):
                    cull could skip, and times beside closest_hit's.
   mega_path        the whole-bounce kernel (mega_bounce) against its plain
                    version on the main frame's mid-frame state (32768 and
-                   2^20 lanes); mega="bounce" frames at 240x160 against the
-                   default frame, the unfused step and the plain frames;
-                   the full-width frame through ``render --fusion bounce
-                   --pool-size 1048576`` with the launch counts read around
-                   it, then in the process beside the default frame.
+                   2^20 lanes); mega="bounce" frames at 240x160 bit-equal
+                   to the default frame and the unfused step's, and against
+                   the plain frames; the full-width frame through ``render
+                   --fusion bounce --pool-size 1048576`` with the launch
+                   counts read around it, then in the process beside the
+                   default frame (the frame rule).
   train_path       the training path at full width -- huge scene, 1200x800
                    camera, thin lens, default options with
                    intersect="pallas": the target by render.render (tiled
@@ -138,8 +157,9 @@ Phases (one JSON object per line on standard output):
                    then once more with --rr-terminate at the CLI's depth
                    32, where --ad-engine auto is the regenerative AD pool.
 Then the ``kernels`` line (``launches`` from the main path's run for
-closest_hit and shade_regen, from the coherent path's full-width frames
-for closest_hit_list, closest_hit_sorted and closest_hit_mxu, from the
+closest_hit, shade_regen and regen_only (once: the prologue), from the
+coherent path's full-width frames for closest_hit_list,
+closest_hit_sorted, closest_hit_mxu and shade_only, from the
 training path's for intersect, from the grouped path's two calls for
 closest_hit_grouped and from the full-width --fusion bounce frame for
 mega_bounce, ``launches_train_path`` beside it, every other number
@@ -174,14 +194,20 @@ Tolerances, and why:
                 terms of 1e6, so the small t of a restart on the ground
                 moves by percents. Median, 99th percentile and largest
                 relative difference are printed.
-  shade_regen   integer planes (and the key words with them) equal on all
-                but at most 1e-3 of lanes, float planes rtol 1e-5 / atol
-                1e-6 on the lanes whose integer planes agree, but for at
-                most 1e-4 of lanes: sinf/cosf/powf of the kernel's and of
-                PyTorch's builds may differ by an ulp, which flips a
-                `u < probability` or `dot > 0` decision on a few lanes in
-                a million; a flip that keeps the integers (reflect against
-                refract) shows as a float outlier.
+  shade_regen   stepped along a trajectory: integer planes (and the key
+                words with them) equal on all but at most 1e-3 of lanes,
+                float planes rtol 1e-5 / atol 1e-6 on the lanes whose
+                integer planes agree, but for at most 1e-4 of lanes:
+                sinf/cosf/powf of the kernel's and of PyTorch's builds may
+                differ by an ulp, which flips a `u < probability` or
+                `dot > 0` decision on a few lanes in a million; a flip that
+                keeps the integers (reflect against refract) shows as a
+                float outlier. Its three entries on one state each: the
+                integer planes and key words bit-equal on every lane
+                (within one step no float decision reads a sinf/cosf of
+                the step's own), the floats as above; every launch shape
+                and camera-ray form bit-equal with the picked one, and the
+                two halves in turn with the fused entry.
   intersect     hit and sphere index equal on every ray, t within rtol
                 1e-6: kernel and plain version do the same IEEE float32
                 operations in the same order (ties keep the earliest
@@ -253,14 +279,17 @@ Tolerances, and why:
   frames        the renderer's own rule (golden.compare_frames): at most
                 1% knife-edge pixels, the rest atol 3e-5 / rtol 1e-4
                 (atol 5e-4 against the JAX-made huge crop, whose XLA:CPU
-                arithmetic contracts multiply-adds). The sorted kernel's
-                frame is bit-equal to the default frame; the unfused
-                step's to the plain frame of the same closest-hit kernel
-                (sublane, sorted, mxu); a tile-ownership frame to the
-                strided one bit-equal between plain frames and inside the
-                frame rule through the kernels (``coherent_frames`` says
-                why). An mxu frame against the default frame: at most 3%
-                of pixels more than 1e-3 away (relative, floor 1e-3), at
+                arithmetic contracts multiply-adds). Every camera ray and
+                bounce draw comes from kernel 2's one arithmetic, so the
+                sorted kernel's frame (either ownership), the unfused
+                step's, the whole-bounce step's and a tile-ownership
+                frame are bit-equal to the default frame (the sorted
+                kernel but for exact ties; the unfused mxu step's to the
+                fused mxu frame), at 240x160 and, for the sorted kernel
+                and the unfused step, at full width; graph frames to
+                eager ones (``coherent_frames``). An mxu frame against
+                the default frame: at most 3% of pixels more than 1e-3
+                away (relative, floor 1e-3), at
                 240x160, depth 12 and at the JAX package's own test shape
                 (``MXU_FRAME_SHARE``, with the readings: 2.30% and 1.04%,
                 where the JAX package allows itself 1%).
@@ -303,6 +332,10 @@ CH_NEEDED = ("bound_needed_ms", "issue_ceiling_ms", "pairs",
 # sky, state update, camera ray): a generous count; the integer hashing is
 # not in the float peak's table and the bound is the bytes anyway.
 SR_FLOPS_PER_LANE = 400
+# ... and of its two halves alone (the same generous count: the shade with
+# its draws, the regen with the camera ray)
+SR_SHADE_FLOPS_PER_LANE = 250
+SR_REGEN_FLOPS_PER_LANE = 150
 
 # intersect: float operations per ray and sphere (3 sub, 5 for b, 6 for c,
 # 3 for the discriminant, 1 compare + 1 select under the sqrt, sqrt, negate,
@@ -645,6 +678,135 @@ def step_shade_regen(torch, eng, steps: int, start_steps: int):
     return tot
 
 
+SR_ENTRIES = ("shade_regen", "shade_only", "regen_only")
+SR_TIMES = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "share_of_bound")
+
+
+def bit_equal_states(torch, a, b) -> bool:
+    """Two lane states equal to the bit, plane by plane (NaNs included)."""
+    return len(a) == len(b) and all(
+        torch.equal(x.view(torch.int32), y.view(torch.int32))
+        for x, y in zip(a, b))
+
+
+def shade_regen_entries(torch, eng, state, seg, timed: bool = True):
+    """Kernel 2's three entries on one mid-frame lane state: each against
+    its plain version (integers and key words bit-equal, floats within
+    the rule), every block size of each entry, with and without PDL,
+    bit-equal with the picked launch, and shade-only then regen-only
+    bit-equal with the fused entry. With ``timed``: each entry's ``ms``
+    (device), ``call_ms``, ``plain_ms`` and bound; the fused entry's
+    block-size sweep; and the PDL A/B on the closest-hit -> shade_regen
+    pair that the engine launches."""
+    from raytracinginoneweekend_tpu_torch.ops import cuda_fused as cf
+    from raytracinginoneweekend_tpu_torch.ops import cuda_segment
+
+    lanes, n_state = eng.lanes, len(state)
+    n_sph = eng.table.shape[0]
+    hit, t, sb = seg
+    params = cuda_segment.resolve_params(sb, eng.sphere_params)
+    surf = cuda_segment.surface_from_params(tuple(state[4:10]), params, hit,
+                                            t)
+    outbuf = tuple(torch.empty_like(p) for p in state)
+    shaded = tuple(p.clone() for p in cf.shade_update_reference(
+        state, surf, eng.base_words, **eng.shade_kw))
+    regen_buf = tuple(torch.empty_like(p) for p in state)
+    run = {
+        "shade_regen": (
+            lambda **kw: cf.shade_regen(state, seg, eng.table, eng.camvec,
+                                        eng.base_words, **eng.step_kw,
+                                        **kw),
+            lambda: cf.shade_regen_reference(state, (hit, t), params,
+                                             eng.camvec, eng.base_words,
+                                             **eng.step_kw)),
+        "shade_only": (
+            lambda **kw: cf.shade_update(state, seg, eng.table,
+                                         eng.base_words, **eng.shade_kw,
+                                         **kw),
+            lambda: cf.shade_update_reference(state, surf, eng.base_words,
+                                              **eng.shade_kw)),
+        # the regen of the shaded state: its idle lanes regenerate
+        "regen_only": (
+            lambda **kw: cf.regen(shaded, eng.camvec, eng.base_words,
+                                  **eng.regen_kw, **kw),
+            lambda: cf.regen_reference(shaded, eng.camvec, eng.base_words,
+                                       **eng.regen_kw)),
+    }
+    got = {name: fn() for name, (fn, _) in run.items()}
+    out = {"lanes": lanes, "active": int((state[3] > 0).sum()),
+           "threads": cf.shade_regen_threads(
+               lanes, cuda_segment._sm_count(torch.cuda.current_device()))}
+    for name, (_, plain) in run.items():
+        want = plain()
+        torch.cuda.synchronize()
+        res = compare_states(torch, got[name], want, eng.n_slots)
+        res["ok"] = (res["int_mismatch"] == 0 and res["key_mismatch"] == 0
+                     and res["float_outliers"] <= max(1, 1e-4 * lanes))
+        out[name] = res
+    fused = got["shade_regen"]
+    # lanes that took a camera ray in this step (their key changed)
+    out["issued_lanes"] = int(((fused[17] != state[17])
+                               | (fused[18] != state[18])).sum())
+    out["shade_then_regen_bit_equal_to_fused"] = bit_equal_states(
+        torch, cf.regen(got["shade_only"], eng.camvec, eng.base_words,
+                        **eng.regen_kw), fused)
+    same = True
+    for name in SR_ENTRIES:
+        for threads in cf.SR_THREADS:
+            for pdl in (False, True):
+                same &= bit_equal_states(
+                    torch, run[name][0](threads=threads, pdl=pdl), got[name])
+    out["launch_shapes_bit_equal"] = bool(same)
+    if not timed:
+        return out
+
+    # bytes that must move: the fused entry reads hit, t, sb and every
+    # state plane and writes every state plane; shade-only reads 18 state
+    # planes (task, sid, 3..18) and hit, t, sb and writes planes 3..16;
+    # regen-only reads and writes every state plane; plus the tables read
+    flops = {"shade_regen": SR_FLOPS_PER_LANE,
+             "shade_only": SR_SHADE_FLOPS_PER_LANE,
+             "regen_only": SR_REGEN_FLOPS_PER_LANE}
+    nbytes = {"shade_regen": lanes * 4 * (3 + 2 * n_state) + n_sph * 40
+              + 19 * 4,
+              "shade_only": lanes * 4 * (3 + 18 + 14) + n_sph * 40,
+              "regen_only": lanes * 4 * 2 * n_state + 19 * 4}
+    timed_run = {
+        "shade_regen": lambda: run["shade_regen"][0](out=outbuf),
+        "shade_only": lambda: run["shade_only"][0](),
+        "regen_only": lambda: run["regen_only"][0](out=regen_buf)}
+    for name, fn in timed_run.items():
+        res = out[name]
+        res.update(times(fn, run[name][1]))
+        res.update(bound(lanes * flops[name], nbytes[name]))
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    out["sweep_ms"] = {
+        f"t{threads}": device_ms(
+            lambda threads=threads: run["shade_regen"][0](out=outbuf,
+                                                          threads=threads))
+        for threads in cf.SR_THREADS}
+    geom = eng.sphere_params[:4]
+
+    def pair(pdl):
+        h = cuda_segment.segment_closest_hit(
+            tuple(state[4:10]), *geom, eng.t_min, active=state[3],
+            table=eng.htable)
+        cf.shade_regen(state, h, eng.table, eng.camvec, eng.base_words,
+                       out=outbuf, pdl=pdl, **eng.step_kw)
+
+    out["pdl"] = {"closest_hit_then_shade_regen_ms_pdl_on": device_ms(
+                      lambda: pair(True)),
+                  "closest_hit_then_shade_regen_ms_pdl_off": device_ms(
+                      lambda: pair(False)),
+                  "shade_regen_ms_pdl_on": device_ms(
+                      lambda: run["shade_regen"][0](out=outbuf, pdl=True))}
+    out["pdl"]["pair_saved_ms"] = (
+        out["pdl"]["closest_hit_then_shade_regen_ms_pdl_off"]
+        - out["pdl"]["closest_hit_then_shade_regen_ms_pdl_on"])
+    return out
+
+
 def kernels_phase(rt, torch, nvidia_smi: str):
     from raytracinginoneweekend_tpu_torch.ops import (cuda_fused,
                                                       cuda_segment)
@@ -689,28 +851,28 @@ def kernels_phase(rt, torch, nvidia_smi: str):
                                                   eng.t_min, act,
                                                   table=eng.htable))
 
-        n_state = len(state)
-        outbuf = tuple(torch.empty_like(p) for p in state)
-        def run_sr():
-            cuda_fused.shade_regen(state, seg, eng.table, eng.camvec,
-                                   eng.base_words, out=outbuf, **eng.step_kw)
-
-        ms = cuda_time_ms(run_sr, iters=20, queue_behind=True)
-        call_ms = cuda_time_ms(run_sr, iters=20)
-        params = cuda_segment.resolve_params(seg[2], eng.sphere_params)
-        plain_ms = cuda_time_ms(lambda: cuda_fused.shade_regen_reference(
-            state, seg[:2], params, eng.camvec, eng.base_words,
-            **eng.step_kw), warmup=1, iters=3)
-        nbytes = eng.lanes * 4 * (3 + 2 * n_state) + n_sph * 40 + 19 * 4
-        t_ops = eng.lanes * SR_FLOPS_PER_LANE / PEAK_F32_FLOPS
-        t_bytes = nbytes / PEAK_BYTES_PER_S
-        sr[pool] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                        bound_ms=max(t_ops, t_bytes) * 1e3,
-                        bound_by="operations" if t_ops >= t_bytes
-                        else "bytes", lanes=eng.lanes)
+        sr[pool] = shade_regen_entries(torch, eng, state, seg)
         if pool == 1 << 15:
             ch["synthetic"] = synthetic_closest_hit(torch, geom, eng.t_min,
                                                     eng.lanes)
+
+    # the three entries again on the stratified + rr arm's state
+    eng = make_engine(rt, torch, "huge", "cpu", "thinlens", strat_rr,
+                      pool_size=1 << 15, **shape)
+    state = mid_frame_state(eng, 40)
+    seg = cuda_segment.segment_closest_hit(
+        tuple(state[4:10]), *eng.sphere_params[:4], eng.t_min,
+        active=state[3], table=eng.htable)
+    sr["stratified_rr"] = shade_regen_entries(torch, eng, state, seg,
+                                              timed=False)
+    for arm, res in sr.items():
+        for entry in SR_ENTRIES:
+            require(res[entry]["ok"], f"{entry} disagrees with its plain "
+                    f"version ({arm}): {res[entry]}")
+        require(res["shade_then_regen_bit_equal_to_fused"]
+                and res["launch_shapes_bit_equal"],
+                f"kernel 2's entries or launch shapes disagree ({arm}): "
+                f"{ {k: v for k, v in res.items() if k not in SR_ENTRIES} }")
 
     # shade_regen beside its plain version, five configurations
     stepped = {}
@@ -769,20 +931,33 @@ def kernels_phase(rt, torch, nvidia_smi: str):
                                       "lanes", "shape", "max_abs_err",
                                       "max_rel_err", "int_mismatch",
                                       "k_sweep")}},
-        {"name": "shade_regen", "route": "cuda",
-         "source": "raytracinginoneweekend_tpu_torch/csrc/shade_regen.cu",
-         "replaces": "raytracinginoneweekend_tpu/ops/pallas_fused.py:87",
-         "launches": None,
-         "max_abs_err": worst["max_abs_err"],
-         "int_mismatch_lanes": worst["int_mismatch"],
-         "float_outlier_lanes": worst["float_outliers"],
-         "ms": sr[main_pool]["ms"], "call_ms": sr[main_pool]["call_ms"],
-         "plain_ms": sr[main_pool]["plain_ms"],
-         "bound_ms": sr[main_pool]["bound_ms"],
-         "bound_by": sr[main_pool]["bound_by"], "library_ms": None,
-         "lanes": sr[main_pool]["lanes"],
-         "at_pool_1m": sr[1 << 20]},
     ]
+    for entry in SR_ENTRIES:
+        at_main, big = sr[main_pool][entry], sr[1 << 20][entry]
+        arms = [sr[a][entry] for a in sr]
+        k = {"name": entry, "route": "cuda",
+             "source": "raytracinginoneweekend_tpu_torch/csrc/shade_regen.cu",
+             "replaces": "raytracinginoneweekend_tpu/ops/pallas_fused.py:87",
+             "launches": None,
+             "max_abs_err": max(r["max_abs_err"] for r in arms),
+             "int_mismatch_lanes": sum(r["int_mismatch"] for r in arms),
+             "float_outlier_lanes": sum(r["float_outliers"] for r in arms),
+             **{key: at_main[key] for key in SR_TIMES},
+             "library_ms": None, "lanes": sr[main_pool]["lanes"],
+             "at_pool_1m": {key: big[key] for key in SR_TIMES}}
+        if entry == "shade_regen":
+            k.update(
+                stepped_int_mismatch_lanes=worst["int_mismatch"],
+                stepped_float_outlier_lanes=worst["float_outliers"],
+                stepped_max_abs_err=worst["max_abs_err"],
+                threads=sr[main_pool]["threads"],
+                launch_sweep_ms=sr[main_pool]["sweep_ms"],
+                pdl=sr[main_pool]["pdl"],
+                at_pool_1m=dict(k["at_pool_1m"],
+                                threads=sr[1 << 20]["threads"],
+                                launch_sweep_ms=sr[1 << 20]["sweep_ms"],
+                                pdl=sr[1 << 20]["pdl"]))
+        line.append(k)
     ix = intersect_checks(rt, torch)
     big, small = ix["rays_960000"], ix["rays_131072"]
     line.append(
@@ -1873,7 +2048,7 @@ def grad_vs_plain_phase(rt, torch, nvidia_smi: str):
 
 def render(rt, torch, options, *, width, height, spp, depth,
            pool_size=1 << 15, plain=False, stats=False, scene=None,
-           cam=None):
+           cam=None, graph=True):
     from raytracinginoneweekend_tpu_torch import cli
 
     dev = torch.device("cuda")
@@ -1882,7 +2057,8 @@ def render(rt, torch, options, *, width, height, spp, depth,
     return rt.render_wavefront(
         scene, cam, rt.key_words(0), width=width, height=height, spp=spp,
         max_depth=depth, camera_mode="thinlens", options=options,
-        pool_size=pool_size, plain=plain, return_stats=stats, device=dev)
+        pool_size=pool_size, plain=plain, return_stats=stats, graph=graph,
+        device=dev)
 
 
 def render_dual(rt, torch, options, *, width, height, spp, depth,
@@ -1946,21 +2122,17 @@ MXU_PLAIN_SHARE = 0.02
 def coherent_frames(rt, torch, default_img, plain_img):
     """This slice's engines at the small frame.
 
-    What must agree to the bit on the card, and with what:
-      * the sorted kernel under strided ownership with the default frame;
-      * the unfused step (closest-hit kernel + plain PyTorch), under either
-        ownership and with the sublane, sorted or mxu kernel, with the
-        matching PLAIN frame: its shading is the plain versions', whose
-        sinf/cosf differ from the shade_regen kernel's by an ulp. For the
-        mxu kernel this is its whole-frame check: kernel and plain version
-        must pick the same winner and the same t on every lane of every
-        iteration;
-      * tile ownership with strided ownership where every camera ray has
-        one arithmetic: ``plain=True`` frames, iid and stratified.
-    Through the kernels a tile frame is held to the strided one by the
-    frame rule: the lanes' first rays come from the plain ``regen``, the
-    later ones from the shade_regen kernel, and which (pixel, sample) pairs
-    are first rays depends on the ownership.
+    What must agree to the bit on the card, and with what (every camera
+    ray and bounce draw comes from kernel 2's one arithmetic: its fused,
+    shade-only and regen-only entries):
+      * the sorted kernel, under either ownership, with the default frame;
+      * tile ownership with strided ownership, iid and stratified, through
+        the kernels and between ``plain=True`` frames;
+      * the unfused step (regen-only, closest hit, shade-only), under
+        either ownership and with the sublane or sorted kernel, with the
+        default frame, and with the mxu kernel with the fused mxu frame;
+      * the mxu kernel with its plain version on every lane of every
+        iteration of a whole frame (``mxu_frame_against_plain``).
     The mxu kernel's fused frame: against its plain frame by
     ``MXU_PLAIN_SHARE`` and against the default frame by
     ``MXU_FRAME_SHARE`` at this frame, and by the JAX package's own 1% at
@@ -1988,15 +2160,16 @@ def coherent_frames(rt, torch, default_img, plain_img):
         return res
 
     plain_mxu = render(rt, torch, variants["mxu"], plain=True, **SMALL)
+    mxu_img = None
     for name, options in variants.items():
         before = dict(kernels.LAUNCHES)
         img = render(rt, torch, options, **SMALL)
         if name == "fusion_off_mxu":
-            out[name + "_vs_plain_mxu"] = held(img, plain_mxu, True, before)
+            out[name + "_vs_mxu"] = held(img, mxu_img, True, before)
         elif name.startswith("fusion_off"):
-            out[name + "_vs_plain_default"] = held(img, plain_img, True,
-                                                   before)
+            out[name + "_vs_default"] = held(img, default_img, True, before)
         elif name == "mxu":
+            mxu_img = img
             # The two frames differ only through shade_regen's sinf/cosf
             # ulps, as the default frame does from its plain frame, but the
             # regrouped arithmetic amplifies them on the ground sphere.
@@ -2015,13 +2188,14 @@ def coherent_frames(rt, torch, default_img, plain_img):
                 "frame_rule": compare_frames(img.cpu().numpy(),
                                              default_img.cpu().numpy())}
         else:
-            out[name + "_vs_default"] = held(img, default_img,
-                                             name == "sorted", before)
+            out[name + "_vs_default"] = held(img, default_img, True, before)
+    out["mxu_kernel_vs_plain_every_iteration"] = mxu_frame_against_plain(
+        rt, torch, variants["mxu"], **SMALL)
     out["mxu_at_jax_shape"] = mxu_at_jax_shape(rt, torch)
-    # One arithmetic for every camera ray (the plain versions): the
-    # ownerships agree to the bit. Through the kernels: the frame rule.
-    # Stratified sampling reads the pixel of the CURRENT task at bounce 0,
-    # the tile de-swizzle inside the stratified branch.
+    # One arithmetic for every camera ray: the ownerships agree to the bit,
+    # through the kernels and between plain frames. Stratified sampling
+    # reads the pixel of the CURRENT task at bounce 0, the tile de-swizzle
+    # inside the stratified branch.
     strat = dataclasses.replace(rt.DEFAULT, sampling="stratified",
                                 rr_terminate=True)
     strat_tile = dataclasses.replace(strat, ownership="tile")
@@ -2033,7 +2207,7 @@ def coherent_frames(rt, torch, default_img, plain_img):
         render(rt, torch, strat, plain=True, **SMALL), True)
     out["stratified_rr_tile_vs_strided"] = held(
         render(rt, torch, strat_tile, **SMALL),
-        render(rt, torch, strat, **SMALL), False)
+        render(rt, torch, strat, **SMALL), True)
     dual_k, met = render_dual(rt, torch, rt.DEFAULT, metrics=True, **SMALL)
     dual_p = render_dual(rt, torch, rt.DEFAULT, plain=True, **SMALL)
     out["dual_vs_plain_dual"] = held(dual_k, dual_p, False)
@@ -2057,11 +2231,52 @@ def coherent_frames(rt, torch, default_img, plain_img):
                                          True)
     for name in ("tile", "sorted_tile"):
         out[f"wall_{name}_vs_default"] = held(wall(variants[name]), base,
-                                              False)
+                                              True)
     out["wall_plain_tile_vs_plain_default"] = held(
         wall(variants["tile"], plain=True), wall(rt.DEFAULT, plain=True),
         True)
     return out
+
+
+def mxu_frame_against_plain(rt, torch, options, **frame):
+    """Render one frame through the mxu kernel (eagerly) with its plain
+    version run beside it on the same rays in EVERY iteration -> the
+    active lane-iterations and those where the two disagree in hit,
+    sphere or the bits of t. The mxu kernel's whole-frame check: the
+    plain version does the kernel's float32 operations in its order. The
+    engine's closest hit is replaced by name for the frame; that it ran
+    at every iteration is required."""
+    from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
+    from raytracinginoneweekend_tpu_torch.ops import wavefront
+
+    dev = torch.device("cuda")
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    kernel = wavefront.closest_hit_planar
+    calls = [0]
+
+    def both(rays, cx, cy, cz, r, t_min, active=None, **kw):
+        calls[0] += 1
+        hk, tk, sk = kernel(rays, cx, cy, cz, r, t_min, active=active, **kw)
+        hp, tp, sp = seg.segment_closest_hit_mxu_reference(
+            rays, cx, cy, cz, r, t_min, active)
+        act = active > 0
+        differ = act & ((hk != hp) | (sk != sp)
+                        | (tk.view(torch.int32) != tp.view(torch.int32)))
+        counts.add_(torch.stack([act.sum(), differ.sum()]))
+        return hk, tk, sk
+
+    wavefront.closest_hit_planar = both
+    try:
+        _, st = render(rt, torch, options, graph=False, stats=True, **frame)
+    finally:
+        wavefront.closest_hit_planar = kernel
+    require(calls[0] == st["iters"] > 0,
+            f"mxu frame: the compared closest hit ran {calls[0]} times in "
+            f"{st['iters']} iterations")
+    lanes, differ = (int(v) for v in counts.tolist())
+    return {"active_lane_iterations": lanes, "lanes_differing": differ,
+            "iterations": st["iters"],
+            "ok": lanes > 0 and differ == 0, "must_be_bit_equal": False}
 
 
 def mxu_at_jax_shape(rt, torch):
@@ -2183,6 +2398,65 @@ def frame_vs_golden_phase(rt, torch, nvidia_smi: str):
                 f"JAX-made golden frame: {cmp}")
 
 
+def require_fused_launches(launches: dict, iters: int, what: str) -> None:
+    """The fused engine's frame: closest_hit and shade_regen once an
+    iteration, regen_only once (the prologue), nothing else."""
+    for name, n in launches.items():
+        want = {"closest_hit": iters, "shade_regen": iters,
+                "regen_only": 1}.get(name, 0)
+        require(n == want and iters > 0,
+                f"kernel {name} was launched {n} times on {what}; the "
+                f"engine ran {iters} iterations and should launch it {want} "
+                "times")
+
+
+def epoch_host_us(rt, torch, pool: int) -> dict:
+    """Host microseconds an iteration costs the main path's loop at
+    ``pool``: one epoch enqueued eagerly, and one replay of its CUDA
+    graph, each behind a long matrix product so that the host never waits
+    for the card (best of three, divided by the epoch's iterations); and
+    the programmatic (PDL) edges the captured graph kept, or None where
+    this PyTorch cannot hand out the captured cudaGraph_t."""
+    from raytracinginoneweekend_tpu_torch import kernels
+    from raytracinginoneweekend_tpu_torch.ops import wavefront
+
+    eng = make_engine(rt, torch, "huge", "cpu", "thinlens", rt.DEFAULT,
+                      pool_size=pool, **{k: MAIN[k] for k in (
+                          "width", "height", "spp", "depth")})
+    ledger = wavefront.new_ledger(eng)
+    state = wavefront.engine_epoch(eng, wavefront.engine_prologue(eng),
+                                   ledger)
+    before = dict(kernels.LAUNCHES)
+    edges = None
+    try:
+        graph, _ = wavefront.capture_epoch(eng, state, ledger,
+                                           keep_graph=True)
+        edges = kernels.entry("rtw_graph_programmatic_edges")(
+            graph.raw_cuda_graph())
+    except TypeError:  # CUDAGraph(keep_graph=...) is newer than this torch
+        graph, _ = wavefront.capture_epoch(eng, state, ledger)
+    big = torch.ones((8192, 8192), device="cuda")
+
+    def enqueue_s(fn) -> float:
+        torch.cuda.synchronize()
+        for _ in range(3):
+            big @ big  # ~0.1 s of device work to hide behind
+        t0 = time.perf_counter()
+        fn()
+        sec = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return sec
+
+    per = 1e6 / eng.flush_every
+    out = {"eager": per * min(enqueue_s(
+               lambda: wavefront.engine_epoch(eng, state, ledger))
+               for _ in range(3)),
+           "graph": per * min(enqueue_s(graph.replay) for _ in range(3)),
+           "programmatic_edges": edges}
+    kernels.LAUNCHES.update(before)
+    return out
+
+
 def main_path_phase(rt, torch, nvidia_smi: str, small_mean, arm_spp: int):
     from raytracinginoneweekend_tpu_torch import cli, kernels
     from raytracinginoneweekend_tpu_torch.golden import compare_frames
@@ -2205,40 +2479,68 @@ def main_path_phase(rt, torch, nvidia_smi: str, small_mean, arm_spp: int):
     require(rc == 0, f"cli render returned {rc}")
     stats = json.loads(err.getvalue().strip().splitlines()[-1])
     require(os.path.getsize(out_png) > 10000, "the PNG was not written")
-    for name in ("closest_hit", "shade_regen"):
-        n = launches[name]
-        require(n == stats["iters"] and n > 0,
-                f"kernel {name} was launched {n} times on the main path; "
-                f"the engine ran {stats['iters']} iterations")
+    require_fused_launches(launches, stats["iters"], "the main path")
 
     dev = torch.device("cuda")
     scene = cli._build_scene("huge", 0, dev)
     cam = cli._build_camera("cpu", w, h, dev)
     rays = w * h * spp
 
-    def timed(options, pool, n_spp, iters):
+    def timed(options, pool, n_spp, iters, graph=True):
         sec, img = time_fn(
             lambda: render(rt, torch, options, width=w, height=h, spp=n_spp,
                            depth=depth, pool_size=pool, scene=scene,
-                           cam=cam),
+                           cam=cam, graph=graph),
             warmup=1, iters=iters, device=dev)
         return sec, img
 
+    # the epoch replayed as a CUDA graph (the engine's default) against the
+    # eager loop, in turns, at both pools: frames bit-equal, launches equal
+    # to the iterations with the replays counted
     runs = {}
     images = {}
     for pool in (1 << 15, 1 << 20):
-        sec, img = timed(rt.DEFAULT, pool, spp, 2)
-        _, st = render(rt, torch, rt.DEFAULT, width=w, height=h, spp=spp,
-                       depth=depth, pool_size=pool, scene=scene, cam=cam,
-                       stats=True)
-        images[pool] = img
-        runs[f"pool_{pool}"] = {
-            "seconds_per_frame": sec, "camera_rays_per_s": rays / sec,
-            "segments_per_s": st["segments"] / sec, **st,
-            "occupancy": st["segments"] / (st["iters"] * st["lanes"]),
-            "mean": float(img.mean())}
+        host = epoch_host_us(rt, torch, pool)
+        for graph in (True, False, True, False):
+            key = f"pool_{pool}" + ("" if graph else "_eager")
+            sec, img = timed(rt.DEFAULT, pool, spp, 1, graph)
+            if key in runs:  # the second turn: keep the faster
+                runs[key]["seconds_per_frame_turns"].append(sec)
+                runs[key]["seconds_per_frame"] = min(
+                    runs[key]["seconds_per_frame_turns"])
+                continue
+            kernels.reset_launches()
+            _, st = render(rt, torch, rt.DEFAULT, width=w, height=h,
+                           spp=spp, depth=depth, pool_size=pool,
+                           scene=scene, cam=cam, stats=True, graph=graph)
+            torch.cuda.synchronize()
+            counted = dict(kernels.LAUNCHES)
+            require_fused_launches(counted, st["iters"],
+                                   f"the frame at pool {pool}, graph={graph}")
+            images[(pool, graph)] = img
+            runs[key] = {
+                "graph": graph, "seconds_per_frame": sec,
+                "seconds_per_frame_turns": [sec], **st,
+                "occupancy": st["segments"] / (st["iters"] * st["lanes"]),
+                "launches": counted, "mean": float(img.mean()),
+                "host_us_per_iteration": host["graph" if graph
+                                              else "eager"]}
+        for graph in (True, False):
+            r = runs[f"pool_{pool}" + ("" if graph else "_eager")]
+            sec = r["seconds_per_frame"]
+            r.update(camera_rays_per_s=rays / sec,
+                     segments_per_s=r["segments"] / sec,
+                     wall_us_per_iteration=sec / r["iters"] * 1e6)
+        runs[f"pool_{pool}"]["graph_bit_equal_to_eager"] = bool(
+            torch.equal(images[(pool, True)], images[(pool, False)]))
+        runs[f"pool_{pool}"]["programmatic_edges_in_graph"] = host[
+            "programmatic_edges"]
+        require(runs[f"pool_{pool}"]["graph_bit_equal_to_eager"],
+                f"pool {pool}: the replayed frame differs from the eager "
+                "frame")
     require(runs[f"pool_{1 << 15}"]["iters"] == stats["iters"],
             "the CLI's run and the timed run took different iterations")
+    images = {pool: images[(pool, True)] for pool in (1 << 15, 1 << 20)}
     img = images[1 << 15]
     require(bool(torch.isfinite(img).all()), "non-finite pixels")
     require(tuple(img.shape) == (w * h, 3), f"image shape {img.shape}")
@@ -2347,6 +2649,44 @@ def sorted_frame_against_closest_hit(rt, torch, options, **frame):
                  "share_skipped": skipped / max(total, 1)}
 
 
+def plain_shading_frame(rt, torch, options, **frame):
+    """A frame of the unrotated step with the closest-hit kernel and the
+    plain versions of kernel 2's two halves (regen_reference,
+    shade_update_reference), eagerly: the single pool shaded in the plain
+    arithmetic that the dual-pool engine shades in. The engine's regen and
+    shade are replaced by name for the frame; that both ran at every
+    iteration is required."""
+    from raytracinginoneweekend_tpu_torch.ops import cuda_fused, wavefront
+
+    calls = {"regen": 0, "shade": 0}
+
+    def regen(state, camvec, base_words, out=None, pdl=False, **kw):
+        calls["regen"] += 1
+        return cuda_fused.regen_reference(state, camvec, base_words, **kw)
+
+    def shade(state, seg, table, base_words, out=None, pdl=False, **kw):
+        calls["shade"] += 1
+        cols = table.unbind(dim=1)
+        params = wavefront.resolve_params(
+            seg[2], cols[:4] + (cols[4].to(torch.int32),) + cols[5:])
+        surf = cuda_fused.surface_from_params(tuple(state[4:10]), params,
+                                              seg[0], seg[1])
+        return cuda_fused.shade_update_reference(state, surf, base_words,
+                                                 **kw)
+
+    kept = wavefront.regen, wavefront.shade_update
+    wavefront.regen, wavefront.shade_update = regen, shade
+    try:
+        img, st = render(rt, torch, options, graph=False, stats=True,
+                         **frame)
+    finally:
+        wavefront.regen, wavefront.shade_update = kept
+    require(calls["regen"] == calls["shade"] == st["iters"] > 0,
+            f"plain shading frame: regen and shade ran {calls} times in "
+            f"{st['iters']} iterations")
+    return img
+
+
 def coherent_path_phase(rt, torch, nvidia_smi: str):
     """This slice's path at full width: the dual-pool engine, the sorted
     kernel under both ownerships, the mxu kernel and the unfused step, each
@@ -2409,7 +2749,8 @@ def coherent_path_phase(rt, torch, nvidia_smi: str):
             lambda: twice(single("mxu", small)), small),
         "fusion_off_pool_1m": (
             ["--fusion", "off", "--pool-size", str(big)], spp,
-            ("closest_hit",), lambda: once(single("fusion_off", big)), big),
+            ("closest_hit", "shade_only", "regen_only"),
+            lambda: once(single("fusion_off", big)), big),
     }
     # the default single pool at both pool sizes: what the others are held
     # against (and timed beside, in the same process on the same card)
@@ -2425,7 +2766,9 @@ def coherent_path_phase(rt, torch, nvidia_smi: str):
                                                         n_spp)
         iters = stats["iterations" if "iterations" in stats else "iters"]
         for k, n in launches.items():
-            want = iters if k in per_iter else 0
+            # the fused step's prologue is one regen-only launch
+            want = iters if k in per_iter else int(
+                k == "regen_only" and "shade_regen" in per_iter)
             require(n == want and iters > 0,
                     f"{name}: kernel {k} was launched {n} times; the engine "
                     f"ran {iters} iterations and should launch it {want} "
@@ -2454,11 +2797,18 @@ def coherent_path_phase(rt, torch, nvidia_smi: str):
                 mean_diff_vs_default=abs(float(img.mean())
                                          - float(ref.mean())))
         out[name] = res
-    # the dual engine and the unfused single pool shade with the same plain
-    # arithmetic: their frames differ by the order of the sums alone
-    out["dual_pool_3m"]["vs_fusion_off"] = compare_frames(
-        images["dual_pool_3m"].cpu().numpy(),
-        images["fusion_off_pool_1m"].cpu().numpy())
+    # the dual engine shades in plain PyTorch: held against the single pool
+    # with the plain shading and regen (the unfused step as it was before
+    # kernel 2 took it), whose frame differs from it by the order of the
+    # sums alone
+    sec, plain_shaded = once(lambda: plain_shading_frame(
+        rt, torch, variants["fusion_off"], spp=spp, pool_size=big, **frame))
+    out["plain_shading_pool_1m"] = {
+        "seconds_per_frame": sec, "mean": float(plain_shaded.mean()),
+        "mean_diff_vs_default": abs(float(plain_shaded.mean())
+                                    - float(base[big]["image"].mean()))}
+    out["dual_pool_3m"]["vs_plain_shading"] = compare_frames(
+        images["dual_pool_3m"].cpu().numpy(), plain_shaded.cpu().numpy())
     # the device-bound regime: the same kernels at 2^20 lanes
     for name in ("sorted_tile", "sorted", "mxu"):
         sec, img = twice(single(name, big))
@@ -2496,15 +2846,23 @@ def coherent_path_phase(rt, torch, nvidia_smi: str):
         # (what can be bit-equal on the card: ``coherent_frames``) the
         # sorted kernel under strided ownership traces the default frame's
         # very paths unless two spheres tie exactly
-        if name in ("sorted", "sorted_pool_1m"):
+        # (one arithmetic for every camera ray: the ownerships too)
+        if name in ("sorted", "sorted_pool_1m", "sorted_tile",
+                    "sorted_tile_pool_1m"):
             ties = (ahead or {}).get("lanes_differing", 0)
             require(res["vs_default"]["ok"]
                     and (res["bit_equal_to_default"] or 0 < ties),
                     f"{name}: the full-width frame differs from the "
                     f"default frame and no exact tie explains it: {res}")
-    require(out["dual_pool_3m"]["vs_fusion_off"]["ok"],
-            "the dual engine's frame and the unfused single pool's differ: "
-            f"{out['dual_pool_3m']['vs_fusion_off']}")
+        # the unfused step through kernel 2's two halves traces the
+        # default frame's very paths
+        if name == "fusion_off_pool_1m":
+            require(res["bit_equal_to_default"],
+                    f"{name}: the full-width frame is not bit-equal to the "
+                    f"default frame: {res}")
+    require(out["dual_pool_3m"]["vs_plain_shading"]["ok"],
+            "the dual engine's frame and the single pool's with the plain "
+            f"shading differ: {out['dual_pool_3m']['vs_plain_shading']}")
     return launches_by_kernel
 
 
@@ -2754,6 +3112,7 @@ def mega_path_phase(rt, torch, nvidia_smi: str):
              "plain_off": render(rt, torch, off, plain=True, **SMALL)}
     frames = {f"bounce_vs_{k}": held(small["bounce"], small[k])
               for k in ("default", "off", "plain_bounce")}
+    frames["off_vs_default"] = held(small["off"], small["default"])
     frames["plain_bounce_vs_plain_off"] = held(small["plain_bounce"],
                                                small["plain_off"])
 
@@ -2782,6 +3141,7 @@ def mega_path_phase(rt, torch, nvidia_smi: str):
             "default_camera_rays_per_s": rays / sec_d,
             "vs_default": compare_frames(img_b.cpu().numpy(),
                                          img_d.cpu().numpy()),
+            "bit_equal_to_default": bool(torch.equal(img_b, img_d)),
             "mean_diff_vs_default": abs(float(img_b.mean())
                                         - float(img_d.mean())),
             "finite": bool(torch.isfinite(img_b).all())}
@@ -2795,17 +3155,20 @@ def mega_path_phase(rt, torch, nvidia_smi: str):
     require(frames["plain_bounce_vs_plain_off"]["bit_equal"],
             "the plain whole-bounce frame differs from the plain unfused "
             "frame")
+    # every camera ray and bounce draw from kernel 2's one arithmetic (the
+    # whole-bounce kernel draws and shades with the same device functions,
+    # and its closest hit is closest_hit's to the bit): the three steps'
+    # frames are one frame
+    for name in ("bounce_vs_default", "bounce_vs_off", "off_vs_default"):
+        require(frames[name]["bit_equal"],
+                f"mega='bounce' frames, {name}: not bit-equal: "
+                f"{frames[name]}")
     require(launches["mega_bounce"] == iters and iters > 0
-            and sum(launches.values()) == iters,
+            and launches["regen_only"] == iters
+            and sum(launches.values()) == 2 * iters,
             f"--fusion bounce launched {launches} in {iters} iterations")
-    # (Not the frame rule against the default frame at full width: like
-    # --fusion off, the whole-bounce step issues every camera ray through
-    # the plain regen, whose sinf/cosf differ from the shade_regen
-    # kernel's by an ulp, and over 100 spp at depth 50 the knife-edge
-    # paths that this moves touch a few percent of pixels -- the same
-    # pixels as --fusion off's frame; ROADMAP.md, Queue 3. The 240x160
-    # frames above hold the step to the rule and to the bit.)
-    require(full["finite"] and full["mean_diff_vs_default"] < MEAN_TOL,
+    require(full["finite"] and full["mean_diff_vs_default"] < MEAN_TOL
+            and full["vs_default"]["ok"] and full["bit_equal_to_default"],
             f"the full-width mega='bounce' frame: {full}")
     main = checks[f"pool_{1 << 15}"]
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "lanes",
@@ -3294,6 +3657,53 @@ def closest_hit_sass(lib: str) -> dict:
     return out
 
 
+def shade_regen_sass(lib: str) -> dict:
+    """Facts of kernel 2's three instantiations (one an entry), read from a
+    built library with cuobjdump: registers, stack and
+    spill (local) bytes (-res-usage), and the local-memory loads and stores
+    in the SASS -- those of the sinf/cosf slow path's reduction table are
+    expected; an indexed lane array would add many more."""
+    import re
+    from raytracinginoneweekend_tpu_torch import kernels
+
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    modes = {"1": "shade_only", "2": "regen_only", "3": "shade_regen"}
+
+    def key(name):
+        m = re.search(r"shade_regen_kernelILi(\d)EE", name)
+        return modes[m.group(1)] if m else None
+
+    def dump(flag):
+        return subprocess.run([cuobjdump, flag, lib], capture_output=True,
+                              text=True, check=True).stdout
+
+    out, cur = {}, None
+    for line in dump("-res-usage").splitlines():
+        m = re.search(r"Function (\S+?):?\s*$", line)
+        if m:
+            cur = key(m.group(1))
+            continue
+        if cur is not None and "REG:" in line:
+            use = dict(re.findall(r"(\w+):(\d+)", line))
+            out[cur] = {"registers": int(use["REG"]),
+                        "stack_bytes": int(use["STACK"]),
+                        "local_bytes": int(use["LOCAL"]), "ldl": 0, "stl": 0}
+            cur = None
+    for line in dump("-sass").splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = key(m.group(1))
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?P\d\s+)?(LDL|STL)\b",
+                      line)
+        if cur in out and m:
+            out[cur][m.group(1).lower()] += 1
+    require(sorted(out) == sorted(modes.values()),
+            f"cuobjdump report of shade_regen_kernel "
+            f"incomplete: {out}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3334,6 +3744,8 @@ def main(argv=None) -> int:
                         for v in sass.values()),
                 "closest_hit_kernel takes a sqrt that a negative "
                 f"discriminant can reach: {sass}")
+        emit({"phase": "shade_regen_build",
+              "kernels": shade_regen_sass(libs["shade_regen.cu"])})
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3381,15 +3793,16 @@ def main(argv=None) -> int:
     line += [out["grouped_path"], out["mega_path"]]
     for k in line:
         # each kernel's count on the path that runs it: the forward render
-        # for closest_hit and shade_regen, the coherent engines' full-width
-        # frames for the list, sorted and mxu kernels, the training path
+        # for closest_hit, shade_regen and regen_only (its prologue), the
+        # coherent engines' full-width frames for the list, sorted and mxu
+        # kernels and shade_only (--fusion off), the training path
         # for intersect (and closest_hit again, under autograd), the
         # grouped path's two trace_segment(group_params=...) calls, and
         # the full-width --fusion bounce frame for mega_bounce (both set by
         # their phases)
         name = k["name"]
         if name in ("closest_hit_list", "closest_hit_sorted",
-                    "closest_hit_mxu"):
+                    "closest_hit_mxu", "shade_only"):
             k["launches"] = coherent_launches[name]
         elif name not in ("closest_hit_grouped", "mega_bounce"):
             k["launches"] = (train_launches if name == "intersect"

@@ -16,9 +16,9 @@ versions whose products and sums are rounded separately.
 Each C entry returns ``cudaGetLastError()`` after its launch; ``check``
 raises when that is not 0. The wrappers (ops/cuda_segment.py,
 ops/cuda_fused.py, ops/cuda_intersect.py, ops/cuda_mega.py) own the launch
-counters;
-``LAUNCHES`` here is the one
-table they count into, so a caller can zero and read all of them.
+counters; ``LAUNCHES`` here is the one table they count into, so a caller
+can zero and read all of them (``launch_delta`` and ``add_launches`` keep
+it true across CUDA graph replays, ops/wavefront.capture_epoch).
 """
 
 from __future__ import annotations
@@ -46,9 +46,16 @@ ENTRIES = {
     "rtw_closest_hit": ("closest_hit.cu",
                         [_P] * 7 + [_P] + [_P] * 3 + [_I, _I, _F, _I, _P]),
     # config struct | state in ptrs | state out ptrs | hit t sb | table
-    # | camera | n_lanes n_spheres | stream
-    "rtw_shade_regen": ("shade_regen.cu",
-                        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    # | camera | n_lanes n_spheres threads pdl | stream
+    "rtw_shade_regen": ("shade_regen.cu", [_P] * 8 + [_I] * 4 + [_P]),
+    # config struct | state in ptrs | state out ptrs | hit t sb | table
+    # | n_lanes n_spheres threads pdl | stream
+    "rtw_shade_only": ("shade_regen.cu", [_P] * 7 + [_I] * 4 + [_P]),
+    # config struct | state in ptrs | state out ptrs | camera | n_lanes
+    # threads pdl | stream
+    "rtw_regen_only": ("shade_regen.cu", [_P] * 4 + [_I] * 3 + [_P]),
+    # cudaGraph_t -> its programmatic (PDL) edges, or -1 - the error
+    "rtw_graph_programmatic_edges": ("shade_regen.cu", [_P]),
     # origin direction | table4 | t idx hit | n_rays n_spheres t_min
     # | stream
     "rtw_closest_hit_n3": ("intersect.cu",
@@ -80,8 +87,11 @@ ENTRIES = {
                                 + [_I, _I, _F, _P]),
 }
 
-# Launch counts, one per kernel; each wrapper adds one where it launches.
-LAUNCHES = {"closest_hit": 0, "shade_regen": 0, "intersect": 0,
+# Launch counts, one per kernel entry; each wrapper adds one where it
+# launches. shade_regen's three entries (ops/cuda_fused.py) count apart:
+# "shade_regen" the fused one, "shade_only" and "regen_only".
+LAUNCHES = {"closest_hit": 0, "shade_regen": 0, "shade_only": 0,
+            "regen_only": 0, "intersect": 0,
             "closest_hit_list": 0, "closest_hit_sorted": 0,
             "closest_hit_mxu": 0, "mega_bounce": 0,
             "closest_hit_grouped": 0}
@@ -94,6 +104,26 @@ build_seconds: float | None = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    """The launches counted between two snapshots of ``LAUNCHES``: {kernel:
+    count} of the kernels counted at least once."""
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+
+
+def add_launches(counts: dict, delta: dict, times: int = 1) -> dict:
+    """``counts`` with ``delta`` added ``times`` over (a new dict).
+
+    A CUDA graph replays the kernels its capture launched, but the
+    wrappers count in Python, which runs only while the graph is captured
+    (and launches nothing then): so the capture's counts are taken back
+    and each replay adds them again."""
+    out = dict(counts)
+    for k, n in delta.items():
+        out[k] = out.get(k, 0) + times * n
+    return out
 
 
 def _nvcc() -> str:

@@ -87,7 +87,7 @@ def mega_bounce_reference(state_planes, sphere_params, *, t_min: float,
 
 def mega_bounce(state_planes, sphere_params, *, t_min: float,
                 max_depth: int, unit_sample: bool, phys_refract: bool,
-                sky_bias: float, tables=None):
+                sky_bias: float, tables=None, out=None):
     """One full wavefront bounce on planar lane state.
 
     state_planes: (active, ox, oy, oz, dx, dy, dz, ax, ay, az, accr, accg,
@@ -95,6 +95,10 @@ def mega_bounce(state_planes, sphere_params, *, t_min: float,
       depth i32, k0/k1 the key words as i32 bit patterns, the rest f32).
     sphere_params: the 10-tuple of cuda_segment.sphere_params_from_scene.
     tables: optional ``mega_tables(sphere_params)``.
+    out: optional 14 planes to write the result into (CUDA only). The
+      kernel reads all of a lane's planes before it writes any, so they
+      may be the state's own planes (the engine updates in place: ox ... dz,
+      ax ... accb and depth, and ``active`` for keep).
     Returns (ox, oy, oz, dx, dy, dz, ax, ay, az, accr, accg, accb, keep,
     depth): the post-bounce lane state, keep as an i32 0/1 plane (the
     port's lane state keeps ``active`` as i32; the JAX package returns a
@@ -108,6 +112,8 @@ def mega_bounce(state_planes, sphere_params, *, t_min: float,
                          f"it takes {N_IN}")
     device = state_planes[1].device
     if device.type == "cpu":
+        if out is not None:
+            raise ValueError("mega_bounce: out= is taken on CUDA only")
         return mega_bounce_reference(state_planes, sphere_params, **kw)
     if device.type != "cuda":
         raise ValueError(f"mega_bounce: no kernel for device {device}")
@@ -140,8 +146,18 @@ def mega_bounce(state_planes, sphere_params, *, t_min: float,
             raise ValueError(f"mega_bounce: {name} must be a contiguous "
                              f"({n_spheres}, {cols}) float32 tensor on "
                              f"{device}")
-    out = tuple(torch.empty(shape, dtype=dt, device=device)
-                for dt in [_F32] * 12 + [_I32] * 2)
+    out_dtypes = [_F32] * 12 + [_I32] * 2
+    if out is None:
+        out = tuple(torch.empty(shape, dtype=dt, device=device)
+                    for dt in out_dtypes)
+    else:
+        out = tuple(out)
+        if len(out) != N_OUT or any(
+                p.dtype != dt or p.shape != shape or p.device != device
+                or not p.is_contiguous() for p, dt in zip(out, out_dtypes)):
+            raise ValueError(f"mega_bounce: out must be {N_OUT} contiguous "
+                             f"planes of shape {tuple(shape)} on {device} "
+                             "(12 float32, then keep and depth int32)")
     ptrs_in = (ctypes.c_void_p * N_IN)(*(p.data_ptr() for p in planes))
     ptrs_out = (ctypes.c_void_p * N_OUT)(*(p.data_ptr() for p in out))
     fn = kernels.entry("rtw_mega_bounce")

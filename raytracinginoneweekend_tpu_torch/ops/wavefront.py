@@ -12,11 +12,13 @@ together, and terminating rays deposit into the framebuffer.
     hand-written CUDA kernels: closest hit (ops/cuda_segment.py; the
     sublane, mxu or sorted kernel by ``hit_kernel``) and the fused
     shade+regen (ops/cuda_fused.py). ``mega="off"`` is the unrotated
-    step ``segment(regen(state))``: the same closest-hit kernel, the rest
-    in plain PyTorch. ``mega="bounce"`` is the unrotated step with the
-    whole segment in ONE kernel (ops/cuda_mega.py: closest hit, winner
-    lookup, draws, shade, state update) after the plain ``regen``. On CPU
-    tensors every kernel runs its plain version.
+    step ``segment(regen(state))``: the regen-only kernel, the same
+    closest-hit kernel, then the shade-only kernel. ``mega="bounce"`` is
+    the unrotated step with the whole segment in ONE kernel
+    (ops/cuda_mega.py: closest hit, winner lookup, draws, shade, state
+    update) after the regen-only kernel. The three entries of
+    csrc/shade_regen.cu share one arithmetic, so the three steps trace
+    the same paths. On CPU tensors every kernel runs its plain version.
   * Lane regeneration is not compacted: a lane owns a fixed sequence of
     task ids and advances independently -- no inter-lane communication.
     ``ownership="strided"``: lane l owns tasks l, l+P, l+2P, ...
@@ -26,13 +28,9 @@ together, and terminating rays deposit into the framebuffer.
     tile order of the image (ops/cull.tile_pixel) -- a block's rays stay
     in a few neighbouring tiles, the coherent layout for
     ``hit_kernel="sorted"``. Both ownerships trace the same (pixel,
-    sample) paths; their frames are bit-identical where every camera ray
-    is generated by one arithmetic (the plain versions, so on the CPU and
-    with ``plain=True``). On the card the lanes' FIRST rays come from the
-    plain ``regen`` and every later one from the shade_regen kernel, whose
-    sinf/cosf differ by an ulp on some arguments; which (pixel, sample)
-    pairs are first rays depends on the ownership, so there the two frames
-    agree inside the frame rule (golden.compare_frames) only.
+    sample) paths, every camera ray from one arithmetic (the kernels'
+    on the card, the plain versions' on the CPU and with ``plain=True``),
+    so their frames are bit-identical.
   * Framebuffer deposit: a TASK-INDEXED LEDGER. A task = up to
     TASK_SAMPLES consecutive samples of ONE pixel, accumulated in the
     lane's registers; a finished task waits in one of the lane's pending
@@ -41,12 +39,17 @@ together, and terminating rays deposit into the framebuffer.
     is a reshape+sum (task id // tasks-per-pixel is a contiguous-run map),
     under tile ownership followed by the de-swizzle of the tile order.
 
-The loop is plain Python: ``while`` over epochs, ``for`` over the
-iterations of one epoch. The host reads the device once per epoch (the
-termination test), never per iteration. Under ``mega="fused"`` the lane
-state and the pending slots are updated IN PLACE on the card (each thread
-touches only its own lane), which saves an allocation of every plane per
-iteration.
+The loop is plain Python: ``while`` over epochs (``engine_epoch``: the
+iterations of one epoch, then the flush). The host reads the device once
+per epoch (the termination test), never per iteration. On the card the
+lane state and the pending slots are updated IN PLACE (each thread touches
+only its own lane), so an epoch's shapes and addresses never change: after
+one eager epoch the engine captures the next as a CUDA graph
+(``capture_epoch``) and replays it for every later epoch, which leaves the
+host one graph launch and one read an epoch instead of ~70 launches of
+Python wrappers (``build_engine(graph=False)`` keeps the eager loop, for
+measuring; the sorted kernel's frames, whose sort state is rebuilt every
+epoch, and ``plain=True`` run eagerly). A capture that fails raises.
 
 RNG discipline is ops/rng.py's (pixel, sample, tag, word) contract, so
 this engine produces the same per-ray radiance as the JAX package's; only
@@ -65,13 +68,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..config import TraceOptions
 from ..models.camera import Camera
 from ..models.scene import Scene
 from ..utils.device import resolve_device
 from . import cull
-from .cuda_fused import (ACT, N_BASE, pack_camera, regen, shade_regen,
-                         shade_regen_reference, shade_update, state_dtypes)
+from .cuda_fused import (ACT, N_BASE, pack_camera, regen, regen_reference,
+                         shade_regen, shade_regen_reference, shade_update,
+                         shade_update_reference, state_dtypes)
 from .cuda_mega import mega_bounce, mega_bounce_reference
 from .cuda_segment import (LANES, MXU_MAX_SPHERES, closest_hit_planar,
                            hit_table, hit_table_padded, mxu_table,
@@ -230,6 +235,7 @@ class Engine(NamedTuple):
     shade_kw: dict     # keywords of cuda_fused.shade_update
     step_kw: dict      # keywords of cuda_fused.shade_regen
     plain: bool        # run the kernels' plain versions on any device
+    graph: bool        # replay the epoch as a CUDA graph (capture_epoch)
 
 
 def build_engine(scene: Scene, cam: Camera, base_key, *, width: int,
@@ -240,7 +246,7 @@ def build_engine(scene: Scene, cam: Camera, base_key, *, width: int,
                  pending_slots: int | None = None,
                  deposit: str | None = None,
                  reserve_frac: float | None = None, plain: bool = False,
-                 device=None) -> Engine:
+                 graph: bool = True, device=None) -> Engine:
     """Validate a frame's configuration and prepare its Engine (arguments
     as ``wavefront_fb``)."""
     _check_carried(options, n_workers, deposit, reserve_frac)
@@ -330,7 +336,8 @@ def build_engine(scene: Scene, cam: Camera, base_key, *, width: int,
         base_words=tuple(int(w) for w in base_key), t_min=options.t_min,
         mega=options.mega, hit_kernel=options.hit_kernel,
         sorted_rows=sorted_rows, sorted_ladder=tuple(options.sorted_ladder),
-        regen_kw=regen_kw, shade_kw=shade_kw, step_kw=step_kw, plain=plain)
+        regen_kw=regen_kw, shade_kw=shade_kw, step_kw=step_kw, plain=plain,
+        graph=graph)
 
 
 def engine_initial_state(eng: Engine) -> tuple:
@@ -339,9 +346,31 @@ def engine_initial_state(eng: Engine) -> tuple:
                               eng.own_bl, eng.own_tb)
 
 
+def _on_card(eng: Engine) -> bool:
+    """The kernels run (not their plain versions) and update in place."""
+    return eng.device.type == "cuda" and not eng.plain
+
+
+def _pdl(eng: Engine) -> bool:
+    """Launch kernel 2's entries as programmatic dependent launches: on the
+    card while an epoch is captured as a CUDA graph, whose programmatic
+    edges save 1-2 us of device time a step. Not in the eager loop, which
+    is host-bound: there such a launch was measured to cost host time
+    while the kernel ahead of it still runs (the sorted kernel's frames,
+    PERF.md)."""
+    return _on_card(eng) and torch.cuda.is_current_stream_capturing()
+
+
 def engine_regen(eng: Engine, state: tuple) -> tuple:
-    """cuda_fused.regen with this engine's keywords (plain PyTorch)."""
-    return regen(state, eng.camvec, eng.base_words, **eng.regen_kw)
+    """cuda_fused.regen with this engine's keywords: on the card the
+    regen-only kernel, in place; with ``plain`` (or on the CPU) its plain
+    version."""
+    if eng.plain:
+        return regen_reference(state, eng.camvec, eng.base_words,
+                               **eng.regen_kw)
+    card = _on_card(eng)
+    return regen(state, eng.camvec, eng.base_words,
+                 out=state if card else None, pdl=_pdl(eng), **eng.regen_kw)
 
 
 def engine_prologue(eng: Engine) -> tuple:
@@ -408,8 +437,12 @@ def engine_mega(eng: Engine, state: tuple) -> tuple:
     if eng.plain:
         out = mega_bounce_reference(planes, eng.sphere_params, **kw)
     else:
+        # on the card in place: the kernel's outputs are its inputs' planes
+        # (keep into ``active``)
         out = mega_bounce(planes, eng.sphere_params,
-                          tables=(eng.htable, eng.table), **kw)
+                          tables=(eng.htable, eng.table),
+                          out=(planes[1:13] + (planes[0], planes[13])
+                               if _on_card(eng) else None), **kw)
     (ox, oy, oz, dx, dy, dz, ax, ay, az, acr, acg, acb, keep, dep) = out
     return (*state[:3], keep, ox, oy, oz, dx, dy, dz, ax, ay, az, dep,
             acr, acg, acb, *state[17:])
@@ -417,24 +450,34 @@ def engine_mega(eng: Engine, state: tuple) -> tuple:
 
 def engine_segment(eng: Engine, state: tuple, sortstate=None) -> tuple:
     """Trace and shade the state's active rays. ``mega="fused"``: closest
-    hit, then the fused shade+regen; on the card the state is updated in
-    place (and returned). ``mega="off"``: closest hit, winner lookup and
-    shading with no regeneration, all but the closest hit in plain
-    PyTorch (new tensors). ``mega="bounce"``: ``engine_mega``."""
+    hit, then the fused shade+regen. ``mega="off"``: closest hit, then the
+    shade with no regeneration (the shade-only kernel). ``mega="bounce"``:
+    ``engine_mega``. On the card the state is updated in place (and
+    returned), and while an epoch is captured the kernel after the closest
+    hit is a programmatic dependent launch (``_pdl``): the closest-hit
+    kernels never write the lane state.
+    With ``plain`` (or on the CPU) the plain versions return new
+    tensors."""
     if eng.mega == "bounce":
         return engine_mega(eng, state)
     hit, t, sb = engine_closest_hit(eng, state, sortstate)
+    card = _on_card(eng)
     if eng.mega == "off":
-        seg = resolve_segment(tuple(state[4:10]), eng.sphere_params, hit, t,
-                              sb)
-        return shade_update(state, seg, eng.base_words, **eng.shade_kw)
+        if eng.plain:
+            seg = resolve_segment(tuple(state[4:10]), eng.sphere_params,
+                                  hit, t, sb)
+            return shade_update_reference(state, seg, eng.base_words,
+                                          **eng.shade_kw)
+        return shade_update(state, (hit, t, sb), eng.table, eng.base_words,
+                            out=state if card else None, pdl=_pdl(eng),
+                            **eng.shade_kw)
     if eng.plain:
         return shade_regen_reference(
             state, (hit, t), resolve_params(sb, eng.sphere_params),
             eng.camvec, eng.base_words, **eng.step_kw)
     return shade_regen(
         state, (hit, t, sb), eng.table, eng.camvec, eng.base_words,
-        out=state if eng.device.type == "cuda" else None, **eng.step_kw)
+        out=state if card else None, pdl=_pdl(eng), **eng.step_kw)
 
 
 def engine_step(eng: Engine, state: tuple, sortstate=None) -> tuple:
@@ -460,6 +503,115 @@ def fold_ledger(eng: Engine, ledger: torch.Tensor) -> torch.Tensor:
     return per_vp.t().contiguous()
 
 
+class Ledger(NamedTuple):
+    """A frame's task ledger: one cell per task id, plus one row of P dump
+    cells (cell n_tasks + lane) that free slots write a zero into, so the
+    flush is one unconditional indexed copy with unique indices: no
+    atomics, no device->host read."""
+
+    cells: torch.Tensor   # (3, n_tasks + P) f32
+    dump: torch.Tensor    # (P,) i64: n_tasks + lane
+    block_end: object     # where each lane's own task sequence ends
+
+
+def new_ledger(eng: Engine) -> Ledger:
+    p, n_tasks, device = eng.lanes, eng.n_tasks, eng.device
+    if eng.own_bl:
+        block_end = (first_tasks(p, device, eng.own_bl, eng.own_tb)
+                     // eng.own_tb + 1) * eng.own_tb
+    else:
+        block_end = n_tasks
+    return Ledger(
+        torch.zeros((3, n_tasks + p), dtype=torch.float32, device=device),
+        torch.arange(n_tasks, n_tasks + p, dtype=torch.int64, device=device),
+        block_end)
+
+
+def flush(eng: Engine, ledger: Ledger, state: tuple) -> None:
+    """Drain every pending slot into the ledger; free the slots (in
+    place). A task finishes once, so its cell is written once and copy
+    equals the JAX package's add onto zero."""
+    for j in range(eng.n_slots):
+        pt, pr, pg, pb = state[N_BASE + 4 * j: N_BASE + 4 * (j + 1)]
+        pt_flat = pt.reshape(-1)
+        cell = torch.where(pt_flat >= 0, pt_flat.to(torch.int64),
+                           ledger.dump)
+        ledger.cells.index_copy_(1, cell, torch.stack(
+            [pr.reshape(-1), pg.reshape(-1), pb.reshape(-1)]))
+        pt.fill_(-1)
+        pr.zero_()
+        pg.zero_()
+        pb.zero_()
+
+
+def more(ledger: Ledger, state: tuple) -> bool:
+    """Anything left to trace? One device->host read."""
+    nxt, task, _sid, act = state[:4]
+    return bool(((act > 0).any() | (task >= 0).any()
+                 | (nxt < ledger.block_end).any()).item())
+
+
+def engine_epoch(eng: Engine, state: tuple, ledger: Ledger, sortstate=None,
+                 segs=None) -> tuple:
+    """One epoch: ``flush_every`` iterations (under the unrotated steps a
+    regen before each segment), then the flush -> the next lane state (on
+    the card the same planes, updated in place). ``segs``: an optional
+    device scalar that counts the lanes that trace (after the regen under
+    the unrotated steps)."""
+    for _ in range(eng.flush_every):
+        if eng.mega != "fused":
+            state = engine_regen(eng, state)
+        if segs is not None:
+            segs += state[ACT].sum()
+        state = engine_segment(eng, state, sortstate)
+    flush(eng, ledger, state)
+    return state
+
+
+def epoch_graphable(eng: Engine) -> bool:
+    """Whether the loop replays this engine's epochs as a CUDA graph: on
+    the card, with the kernels, unless asked not to (``graph=False``) or
+    the epoch reads a sort state that is rebuilt every epoch (the sorted
+    kernel's frames run eagerly)."""
+    return eng.graph and _on_card(eng) and eng.hit_kernel != "sorted"
+
+
+def capture_epoch(eng: Engine, state: tuple, ledger: Ledger, segs=None,
+                  keep_graph: bool = False):
+    """Capture one ``engine_epoch`` on ``state`` as a CUDA graph -> (the
+    graph, the launches one replay makes, by kernel).
+
+    Capture launches nothing: a replay runs the epoch on the same planes
+    (the state, the ledger, ``segs``), which must have stayed where they
+    are -- the epoch updates them in place. The kernels must have been
+    built and launched once (an eager epoch), so that nothing is compiled
+    or loaded during the capture. The wrappers count their launches in
+    Python, which runs only now: the counts are taken back here, and the
+    caller adds ``per_epoch`` at every replay (kernels.add_launches).
+    ``keep_graph`` keeps the captured cudaGraph_t for inspection
+    (``raw_cuda_graph``). Raises if the capture fails or the epoch does
+    not update the state in place; there is no eager fallback.
+    """
+    if not epoch_graphable(eng):
+        raise ValueError("capture_epoch: this engine's epoch runs eagerly "
+                         "(graph=False, plain, off the card, or the sorted "
+                         "kernel)")
+    graph = (torch.cuda.CUDAGraph(keep_graph=True) if keep_graph
+             else torch.cuda.CUDAGraph())
+    before = dict(kernels.LAUNCHES)
+    try:
+        with torch.cuda.graph(graph):
+            after = engine_epoch(eng, state, ledger, None, segs)
+        per_epoch = kernels.launch_delta(before, kernels.LAUNCHES)
+    finally:
+        kernels.LAUNCHES.update(before)
+    if len(after) != len(state) or any(a is not b
+                                       for a, b in zip(after, state)):
+        raise RuntimeError("capture_epoch: the epoch did not update the "
+                           "lane state in place; it cannot be replayed")
+    return graph, per_epoch
+
+
 def wavefront_fb(scene: Scene, cam: Camera, base_key, *,
                  return_stats: bool = False, **config):
     """Trace every task -> UNNORMALIZED (H*W, 3) framebuffer sums.
@@ -478,6 +630,9 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *,
         (what the JAX package does with them is not ported yet).
       plain: run the kernels' plain PyTorch versions whatever the device
         -- the reference a frame of the kernels is held against.
+      graph: on the card, replay every epoch after the first as a CUDA
+        graph (``capture_epoch``); False keeps the eager loop. The frame
+        is the same to the bit either way.
       device: where to render (None = the CUDA card); scene and camera
         are moved there.
     return_stats: also return {"iters", "segments", "lanes"} occupancy
@@ -501,63 +656,27 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *,
         finishes once, so every cell is written exactly once.
     """
     eng = build_engine(scene, cam, base_key, **config)
-    p, n_tasks, device = eng.lanes, eng.n_tasks, eng.device
-
-    # Ledger: one cell per task id, plus one row of P dump cells (cell
-    # n_tasks + lane) that free slots write a zero into, so the flush is
-    # one unconditional indexed copy with unique indices: no atomics, no
-    # device->host read.
-    ledger = torch.zeros((3, n_tasks + p), dtype=torch.float32,
-                         device=device)
-    dump = torch.arange(n_tasks, n_tasks + p, dtype=torch.int64,
-                        device=device)
-    # where each lane's own task sequence ends
-    if eng.own_bl:
-        block_end = (first_tasks(p, device, eng.own_bl, eng.own_tb)
-                     // eng.own_tb + 1) * eng.own_tb
-    else:
-        block_end = n_tasks
-
-    def flush(state):
-        """Drain every pending slot into the ledger; free the slots (in
-        place). A task finishes once, so its cell is written once and
-        copy equals the JAX package's add onto zero."""
-        for j in range(eng.n_slots):
-            pt, pr, pg, pb = state[N_BASE + 4 * j: N_BASE + 4 * (j + 1)]
-            pt_flat = pt.reshape(-1)
-            cell = torch.where(pt_flat >= 0, pt_flat.to(torch.int64), dump)
-            ledger.index_copy_(1, cell, torch.stack(
-                [pr.reshape(-1), pg.reshape(-1), pb.reshape(-1)]))
-            pt.fill_(-1)
-            pr.zero_()
-            pg.zero_()
-            pb.zero_()
-
-    def more(state) -> bool:
-        """Anything left to trace? One device->host read."""
-        nxt, task, _sid, act = state[:4]
-        return bool(((act > 0).any() | (task >= 0).any()
-                     | (nxt < block_end).any()).item())
-
+    ledger = new_ledger(eng)
+    segs = (torch.zeros((), dtype=torch.int64, device=eng.device)
+            if return_stats else None)
     state = engine_prologue(eng)
-    iters = 0
-    segs = torch.zeros((), dtype=torch.int64, device=device)
-    while more(state):
-        sortstate = engine_sortstate(eng, state)
-        for _ in range(eng.flush_every):
-            if eng.mega != "fused":
-                state = engine_regen(eng, state)
-            if return_stats:
-                # lanes that trace this iteration (the unrotated steps
-                # regenerate first, so there it counts after the regen)
-                segs += state[ACT].sum()
-            state = engine_segment(eng, state, sortstate)
+    iters, graph, per_epoch = 0, None, None
+    while more(ledger, state):
+        if graph is None and iters and epoch_graphable(eng):
+            graph, per_epoch = capture_epoch(eng, state, ledger, segs)
+        if graph is not None:
+            graph.replay()
+            kernels.LAUNCHES.update(
+                kernels.add_launches(kernels.LAUNCHES, per_epoch))
+        else:
+            state = engine_epoch(eng, state, ledger,
+                                 engine_sortstate(eng, state), segs)
         iters += eng.flush_every
-        flush(state)
 
-    fb = fold_ledger(eng, ledger)
+    fb = fold_ledger(eng, ledger.cells)
     if return_stats:
-        return fb, {"iters": iters, "segments": int(segs.item()), "lanes": p}
+        return fb, {"iters": iters, "segments": int(segs.item()),
+                    "lanes": eng.lanes}
     return fb
 
 

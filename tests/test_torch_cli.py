@@ -365,9 +365,9 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch, tmp_path):
     assert pcli.main(["fit", *FIT_FLAGS, "--steps", "1", "--ad-engine",
                       "wavefront"]) == 0
     assert kernels.LAUNCHES == dict.fromkeys(
-        ("closest_hit", "shade_regen", "intersect", "closest_hit_list",
-         "closest_hit_sorted", "closest_hit_mxu", "mega_bounce",
-         "closest_hit_grouped"), 0)
+        ("closest_hit", "shade_regen", "shade_only", "regen_only",
+         "intersect", "closest_hit_list", "closest_hit_sorted",
+         "closest_hit_mxu", "mega_bounce", "closest_hit_grouped"), 0)
     assert not os.path.exists(os.path.join(kernels.BUILD_DIR, "lock"))
 
 
