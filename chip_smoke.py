@@ -13,12 +13,14 @@ not build, launch or agree with its plain PyTorch version, when the main
 path did not go through a kernel, or when any phase's check fails.
 
 Phases (one JSON object per line on standard output):
-  closest_hit_build  for each K of closest_hit's split loop, read from the
-                   built library (cuobjdump -res-usage -sass): registers,
-                   stack and local memory, the routines it calls, among
-                   them any sqrt slow path, and whether every sqrt sits
-                   behind the disc >= 0 branch (required). ptxas's own
-                   report (-Xptxas -v) goes to standard error.
+  closest_hit_build  for each K of the three split loops -- closest_hit,
+                   closest_hit_sorted and mega_bounce -- read from the
+                   built libraries (cuobjdump -res-usage -sass):
+                   registers, stack and local memory, the routines it
+                   calls, among them any sqrt slow path, and whether every
+                   sqrt of the sphere loop sits behind the disc >= 0 branch
+                   (required). ptxas's own report (-Xptxas -v) goes to
+                   standard error.
   shade_regen_build  for each instantiation of kernel 2 (entry, lanes a
                    thread, camera-ray form), read from the built library:
                    registers, stack and spill bytes, local loads and stores.
@@ -60,7 +62,9 @@ Phases (one JSON object per line on standard output):
                    ownership with a sort state half an epoch old, ladders
                    (4,) and (1, 8), with the kernel's own count of the
                    chunks it skipped beside what a lane-by-lane exit could
-                   skip (from the inputs), and on synthetic rays (no ladder,
+                   skip (from the inputs), at every K (1 ... 32) bit-equal
+                   with its plain version and timed (its K sweep, with the
+                   share skipped at each K), and on synthetic rays (no ladder,
                    rays outside the slab heading away, dy = 0, inactive
                    lanes); closest_hit_mxu on the same states and on
                    closest_hit's synthetic cases. shade_regen also under
@@ -114,7 +118,10 @@ Phases (one JSON object per line on standard output):
                    wavefront-dual`` at a pool of 3 * 2^20 lanes (2^20
                    primary) and, cut to 2 spp, at its default pool;
                    ``--hit-kernel sorted --ownership tile``; ``--hit-kernel
-                   sorted``; ``--hit-kernel mxu``; ``--fusion off`` (at
+                   sorted`` (both also timed eagerly, ``graph=False``, and
+                   the frames whose epochs, sort state included, are
+                   replayed as CUDA graphs held bit-equal to the eager
+                   ones); ``--hit-kernel mxu``; ``--fusion off`` (at
                    2^20 lanes); the sorted and mxu kernels again at 2^20
                    lanes; the single pool shaded in plain PyTorch (the
                    unfused step with kernel 2's plain halves), which the
@@ -130,12 +137,15 @@ Phases (one JSON object per line on standard output):
                    cull could skip, and times beside closest_hit's.
   mega_path        the whole-bounce kernel (mega_bounce) against its plain
                    version on the main frame's mid-frame state (32768 and
-                   2^20 lanes); mega="bounce" frames at 240x160 bit-equal
+                   2^20 lanes), at every K of its split loop bit-equal
+                   (every output plane) and timed (its K sweep);
+                   mega="bounce" frames at 240x160 bit-equal
                    to the default frame and the unfused step's, and against
                    the plain frames; the full-width frame through ``render
                    --fusion bounce --pool-size 1048576`` with the launch
                    counts read around it, then in the process beside the
-                   default frame (the frame rule).
+                   default frame, bit-equal, at pools of 2^20 and 2^15
+                   lanes.
   train_path       the training path at full width -- huge scene, 1200x800
                    camera, thin lens, default options with
                    intersect="pallas": the target by render.render (tiled
@@ -176,7 +186,10 @@ Tolerances, and why:
                 differently. In the K sweep and on ties_and_grazes: bit-
                 equal on every lane (hit, sphere index, the bits of t), as
                 the split loop's lexicographic reduce over (q, index)
-                returns the one-thread loop's result for any K.
+                returns the one-thread loop's result for any K. The same
+                for closest_hit_sorted's K sweep (its reduce is over (q,
+                position in the sorted order); a skipped stage changes no
+                result) and, every output plane, mega_bounce's.
   closest_hit_list, closest_hit_sorted, closest_hit_mxu
                 against their plain versions: closest_hit's tolerance, for
                 the same reason. Against closest_hit on the same rays: the
@@ -460,21 +473,13 @@ def compare_closest_hit(torch, rays, geom, t_min, active, table=None,
 
 
 def closest_hit_needed(rays, geom, active, t_bytes: float) -> dict:
-    """closest_hit's bound from the work this input needs: CH_FLOPS_PER_
-    SPHERE for each active (lane, sphere) pair whose discriminant is >= 0,
-    CH_MISS_FLOPS for the rest, against PEAK_F32_FLOPS -> bound_needed_ms;
-    the same operations at the float32 issue rate that -fmad=false leaves
-    (one instruction each: half the peak, which counts an FMA as two) ->
-    issue_ceiling_ms. Either is the larger of that time and ``t_bytes``."""
+    """closest_hit's bound from the work this input needs
+    (``needed_bound``) over every active lane and every sphere."""
     from raytracinginoneweekend_tpu_torch.closest_hit_checks import (
         disc_pairs)
 
     n_ge, n_pairs = disc_pairs(rays, *geom, active)
-    t_ops = (n_ge * CH_FLOPS_PER_SPHERE
-             + (n_pairs - n_ge) * CH_MISS_FLOPS) / PEAK_F32_FLOPS
-    return {"pairs": n_pairs, "pairs_disc_ge_0": n_ge,
-            "bound_needed_ms": max(t_ops, t_bytes) * 1e3,
-            "issue_ceiling_ms": max(2 * t_ops, t_bytes) * 1e3}
+    return needed_bound(n_pairs, n_ge, t_bytes)
 
 
 def synthetic_ties_and_grazes(torch, dev):
@@ -1075,7 +1080,7 @@ def lane_bytes(lanes: int, active: int) -> int:
 
 
 def sorted_lane_chunks(torch, rays, geom, t_min, act, sortstate, ladder,
-                       rows: int) -> int:
+                       rows: int) -> tuple:
     """The chunks of 8 spheres that closest_hit_sorted's contract makes
     the active lanes test, summed over lanes and computed from the INPUTS
     alone, in plain PyTorch: a lane must run a stage of the ladder unless
@@ -1083,15 +1088,19 @@ def sorted_lane_chunks(torch, rays, geom, t_min, act, sortstate, ladder,
     own exit terms: block distance with its slack, slab exit, the best hit
     among the spheres sorted before the checkpoint). The kernel skips a
     stage only when a whole warp is finished, so it tests at least this
-    much: the operations its bound is stated with."""
+    much: the operations its bound is stated with. -> (those chunks, the
+    (lane, sphere) pairs among them whose discriminant is >= 0: the pairs
+    that go on to the square root, from which the needed bound is
+    stated)."""
+    from raytracinginoneweekend_tpu_torch.closest_hit_checks import (
+        disc_pairs)
     from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
 
     perm, suf, oc, yb = sortstate
     nb, n_chunks = perm.shape[0], perm.shape[1] // seg.UNROLL
+    n_sph = geom[0].shape[0]
     active = (act > 0).reshape(nb, -1)
     pts = seg.ladder_points(ladder, n_chunks)
-    if not pts:
-        return int(active.sum()) * n_chunks
     ox, oy, oz, dx, dy, dz = (p.reshape(nb, rows * 128) for p in rays)
     a = dx * dx + dy * dy + dz * dz
     rsa = 1.0 / torch.sqrt(a)
@@ -1106,11 +1115,23 @@ def sorted_lane_chunks(torch, rays, geom, t_min, act, sortstate, ladder,
     table = seg.hit_table_padded(*geom)
     q_min = (torch.tensor(t_min, dtype=torch.float32) * a)[..., None]
     q_b, lo = big, 0
-    chunks = torch.zeros((), dtype=torch.int64, device=ox.device)
+    chunks, n_ge = 0, 0
     for hi in pts + [n_chunks]:
-        done = (dist_up <= 0) | (torch.minimum(q_b * rsa, dist_up) + bl
-                                 <= suf[:, lo:lo + 1])
-        chunks += (active & ~done).sum() * (hi - lo)
+        if pts:
+            done = (dist_up <= 0) | (torch.minimum(q_b * rsa, dist_up) + bl
+                                     <= suf[:, lo:lo + 1])
+            need = active & ~done
+        else:
+            need = active
+        chunks += int(need.sum()) * (hi - lo)
+        for b in range(nb):
+            lanes = need[b]
+            ids = perm[b, lo * seg.UNROLL:hi * seg.UNROLL].to(torch.int64)
+            ids = ids[ids < n_sph]  # the pad sphere's discriminant is < 0
+            if bool(lanes.any()) and ids.numel():
+                n_ge += disc_pairs(
+                    tuple(p[b][lanes] for p in (ox, oy, oz, dx, dy, dz)),
+                    *(g[ids] for g in geom))[0]
         if hi < n_chunks:  # the best hit among the spheres before `hi`
             cand = table[perm[:, lo * seg.UNROLL:hi * seg.UNROLL].to(
                 torch.int64)][:, None]                  # (B, 1, k, 4)
@@ -1119,7 +1140,53 @@ def sorted_lane_chunks(torch, rays, geom, t_min, act, sortstate, ladder,
                 *(cand[..., k] for k in range(4)))
             q_b = torch.minimum(q_b, q.amin(dim=2))
         lo = hi
-    return int(chunks)
+    return chunks, n_ge
+
+
+def needed_bound(pairs: int, pairs_ge: int, t_bytes: float) -> dict:
+    """The bound from the work an input needs: CH_FLOPS_PER_SPHERE for
+    each (lane, sphere) pair whose discriminant is >= 0, CH_MISS_FLOPS
+    for the rest, against PEAK_F32_FLOPS -> bound_needed_ms; the same
+    operations at the float32 issue rate that -fmad=false leaves (one
+    instruction each: half the peak, which counts an FMA as two) ->
+    issue_ceiling_ms. Either is the larger of that time and ``t_bytes``."""
+    t_ops = (pairs_ge * CH_FLOPS_PER_SPHERE
+             + (pairs - pairs_ge) * CH_MISS_FLOPS) / PEAK_F32_FLOPS
+    return {"pairs": pairs, "pairs_disc_ge_0": pairs_ge,
+            "bound_needed_ms": max(t_ops, t_bytes) * 1e3,
+            "issue_ceiling_ms": max(2 * t_ops, t_bytes) * 1e3}
+
+
+def sorted_sweep(torch, rays, geom, t_min, act, sortstate, rows, table):
+    """closest_hit_sorted at every K of its split loop (``CH_SPLITS``)
+    with the timed ladder, against its plain version on one input, to the
+    bit on every lane (hit, sphere index, the bits of t); each K's device
+    time and share of chunks skipped -> {"K<k>": {...}, "picked": the K
+    that the wrapper picks for these lanes}."""
+    from raytracinginoneweekend_tpu_torch.closest_hit_checks import bit_diff
+    from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
+
+    want = seg.segment_closest_hit_sorted_reference(
+        rays, *geom, sortstate, t_min, rows, act, SORTED_LADDER)
+    out = {}
+    for k in seg.CH_SPLITS:
+        stats = torch.zeros(2, dtype=torch.int64, device=act.device)
+
+        def run(k=k, stats=None):
+            return seg.segment_closest_hit_sorted(
+                rays, *geom, sortstate, t_min, rows=rows, active=act,
+                ladder=SORTED_LADDER, table=table, stats=stats, split=k)
+
+        diff = bit_diff(run(stats=stats), want)
+        require(not any(diff.values()), f"closest_hit_sorted at K = {k} is "
+                f"not bit-equal with its plain version: {diff}")
+        skipped, total = (int(v) for v in stats.tolist())
+        out[f"K{k}"] = dict(diff, ms=device_ms(run),
+                            share_skipped=skipped / max(total, 1))
+    out["picked"] = seg.closest_hit_split(
+        rays[0].numel(), torch.cuda.get_device_properties(
+            rays[0].device).multi_processor_count, seg.SPLIT_THREADS_PER_SM)
+    return out
 
 
 def times(run, plain_run) -> dict:
@@ -1337,18 +1404,23 @@ def sorted_kernel_checks(rt, torch, shape):
             # cull blocks that hold an active lane read their sort state
             live_blocks = int((act.reshape(-1, rows * 128).sum(dim=1)
                                > 0).sum())
-            need = sorted_lane_chunks(torch, rays, geom, eng.t_min, act,
-                                      sortstate, SORTED_LADDER, rows)
+            need, need_ge = sorted_lane_chunks(torch, rays, geom, eng.t_min,
+                                               act, sortstate, SORTED_LADDER,
+                                               rows)
+            nbytes = (lane_bytes(eng.lanes, res["active"])
+                      + live_blocks * (s_pad * 4 + (s_pad // 8 + 1) * 4 + 12)
+                      + (n_sph + 1) * 16 + 8)
             res.update(
                 lanes=eng.lanes, spheres=n_sph,
                 # what a lane-by-lane exit could skip, beside what the
                 # kernel's warp-wide one did (share_skipped)
                 share_skippable_lane_by_lane=1.0 - need / max(
                     res["active"] * (s_pad // 8), 1),
-                **bound(need * 8 * CH_FLOPS_PER_SPHERE,
-                        lane_bytes(eng.lanes, res["active"])
-                        + live_blocks * (s_pad * 4 + (s_pad // 8 + 1) * 4
-                                         + 12) + (n_sph + 1) * 16 + 8))
+                **bound(need * 8 * CH_FLOPS_PER_SPHERE, nbytes),
+                **needed_bound(need * 8, need_ge,
+                               nbytes / PEAK_BYTES_PER_S),
+                k_sweep=sorted_sweep(torch, rays, geom, eng.t_min, act,
+                                     sortstate, rows, table))
             out[f"pool_{pool}_{own}"] = case
 
     # synthetic rays on four cull blocks
@@ -1473,7 +1545,7 @@ def coherent_kernel_lines(lst, srt, mxu):
     list_keys = keys + ("mean_list", "candidates_per_active_lane",
                         "closest_hit_ms_same_rays")
     sort_keys = keys + ("share_skipped", "share_skippable_lane_by_lane",
-                        "closest_hit_ms_same_rays")
+                        "closest_hit_ms_same_rays", *CH_NEEDED, "k_sweep")
     return [
         entry("closest_hit_list", "132", l_main,
               **{k: l_main[k] for k in list_keys[-3:]},
@@ -1484,6 +1556,13 @@ def coherent_kernel_lines(lst, srt, mxu):
               share_skippable_lane_by_lane=s_main[
                   "share_skippable_lane_by_lane"],
               closest_hit_ms_same_rays=s_main["closest_hit_ms_same_rays"],
+              **{k: s_main[k] for k in CH_NEEDED},
+              split=s_main["k_sweep"]["picked"],
+              k_sweep_ms={k: v["ms"] for k, v in s_main["k_sweep"].items()
+                          if k != "picked"},
+              k_sweep_share_skipped={
+                  k: v["share_skipped"]
+                  for k, v in s_main["k_sweep"].items() if k != "picked"},
               **{f"at_pool_{p}_{own}": {
                   k: srt[f"pool_{p}_{own}"][lad][k] for k in sort_keys}
                  for p in (1 << 15, 1 << 20) for own in ("strided", "tile")
@@ -2637,8 +2716,8 @@ def sorted_frame_against_closest_hit(rt, torch, options, **frame):
         return hk, tk, sk
 
     wavefront.segment_closest_hit_sorted = both
-    try:
-        img = render(rt, torch, options, **frame)
+    try:  # eagerly: the kernel's stats= counter stays outside a graph
+        img = render(rt, torch, options, graph=False, **frame)
     finally:
         wavefront.segment_closest_hit_sorted = sorted_kernel
     lanes, differ, not_tie = (int(v) for v in counts.tolist())
@@ -2793,6 +2872,8 @@ def coherent_path_phase(rt, torch, nvidia_smi: str):
                 vs_default=compare_frames(img.cpu().numpy(),
                                           ref.cpu().numpy()),
                 bit_equal_to_default=bool(torch.equal(img, ref)),
+                pixels_differing_from_default=int(
+                    (img != ref).any(dim=1).sum()),
                 share_beyond_1e_3_of_default=mxu_frame_share(img, ref),
                 mean_diff_vs_default=abs(float(img.mean())
                                          - float(ref.mean())))
@@ -2820,7 +2901,18 @@ def coherent_path_phase(rt, torch, nvidia_smi: str):
             "camera_rays_per_s": w * h * spp / sec, "stats": st,
             "vs_default": compare_frames(img.cpu().numpy(),
                                          ref.cpu().numpy()),
-            "bit_equal_to_default": bool(torch.equal(img, ref))}
+            "bit_equal_to_default": bool(torch.equal(img, ref)),
+            "pixels_differing_from_default": int(
+                (img != ref).any(dim=1).sum())}
+    # the sorted frames' epochs are replayed as CUDA graphs, their sort
+    # state computed inside each: against the same frames run eagerly
+    for name in ("sorted", "sorted_tile"):
+        sec, img = twice(lambda: render(rt, torch, variants[name], spp=spp,
+                                        pool_size=small, graph=False,
+                                        **frame))
+        out[name]["eager_seconds_per_frame"] = sec
+        out[name]["graph_bit_equal_to_eager"] = bool(
+            torch.equal(img, images[name]))
     # the sorted kernel beside closest_hit through a whole frame, with the
     # kernel's count of the chunk-stages it skipped
     for name in ("sorted", "sorted_tile"):
@@ -2854,6 +2946,10 @@ def coherent_path_phase(rt, torch, nvidia_smi: str):
                     and (res["bit_equal_to_default"] or 0 < ties),
                     f"{name}: the full-width frame differs from the "
                     f"default frame and no exact tie explains it: {res}")
+        if "graph_bit_equal_to_eager" in res:
+            require(res["graph_bit_equal_to_eager"],
+                    f"{name}: the frame replayed as CUDA graphs is not "
+                    f"bit-equal to the eager frame: {res}")
         # the unfused step through kernel 2's two halves traces the
         # default frame's very paths
         if name == "fusion_off_pool_1m":
@@ -3076,11 +3172,47 @@ def mega_kernel_checks(rt, torch, shape):
                 planes, eng.sphere_params, **kw)))
         res["closest_hit_ms_same_rays"] = device_ms(
             lambda: wavefront.engine_closest_hit(eng, state))
-        res.update(bound(active * n_sph * CH_FLOPS_PER_SPHERE,
-                         eng.lanes * (16 + 14) * 4 + n_sph * 56))
+        nbytes = eng.lanes * (16 + 14) * 4 + n_sph * 56
+        res.update(bound(active * n_sph * CH_FLOPS_PER_SPHERE, nbytes))
+        res.update(closest_hit_needed(
+            tuple(planes[1:7]), eng.sphere_params[:4], planes[0],
+            nbytes / PEAK_BYTES_PER_S))
         res["ok"] = (res["int_mismatch"] == 0
                      and res["float_outliers"] <= max(1, 1e-4 * eng.lanes))
+        res["k_sweep"] = mega_sweep(torch, planes, eng.sphere_params, tables,
+                                    kw, want)
         out[f"pool_{pool}"] = res
+    return out
+
+
+def mega_sweep(torch, planes, sphere_params, tables, kw, want):
+    """mega_bounce at every K of its split loop (``CH_SPLITS``) against its
+    plain version's 14 output planes, every plane to the bit on every lane
+    (the floats by their bits), and each K's device time -> {"K<k>":
+    {...}, "picked": the K that the wrapper picks for these lanes}."""
+    from raytracinginoneweekend_tpu_torch.ops import cuda_mega
+    from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
+
+    out = {}
+    for k in seg.CH_SPLITS:
+        def run(k=k):
+            return cuda_mega.mega_bounce(planes, sphere_params,
+                                         tables=tables, split=k, **kw)
+
+        got = run()
+        bad = {}
+        for n, (g, w) in enumerate(zip(got, want)):
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            m = int((g != w).sum())
+            if m:
+                bad[f"plane_{n}"] = m
+        require(not bad, f"mega_bounce at K = {k} is not bit-equal with its "
+                f"plain version (lanes that differ, by plane): {bad}")
+        out[f"K{k}"] = {"planes_differing": 0, "ms": device_ms(run)}
+    out["picked"] = seg.closest_hit_split(
+        planes[1].numel(), torch.cuda.get_device_properties(
+            planes[1].device).multi_processor_count, seg.SPLIT_THREADS_PER_SM)
     return out
 
 
@@ -3145,6 +3277,20 @@ def mega_path_phase(rt, torch, nvidia_smi: str):
             "mean_diff_vs_default": abs(float(img_b.mean())
                                         - float(img_d.mean())),
             "finite": bool(torch.isfinite(img_b).all())}
+    # the CLI's default pool, where the kernel's split loop runs K = 8
+    small_pool = dict(frame, pool_size=1 << 15)
+    sec_d, img_d = time_fn(lambda: render(rt, torch, rt.DEFAULT,
+                                          **small_pool),
+                           warmup=1, iters=1, device=dev)
+    sec_b, img_b = time_fn(lambda: render(rt, torch, bounce, **small_pool),
+                           warmup=1, iters=1, device=dev)
+    full["at_pool_32768"] = {
+        "seconds_per_frame": sec_b, "camera_rays_per_s": rays / sec_b,
+        "default_seconds_per_frame": sec_d,
+        "vs_default": compare_frames(img_b.cpu().numpy(),
+                                     img_d.cpu().numpy()),
+        "bit_equal_to_default": bool(torch.equal(img_b, img_d)),
+        "finite": bool(torch.isfinite(img_b).all())}
     emit({"phase": "mega_path", "card": nvidia_smi, **MAIN,
           "kernel": checks, "frames_240x160": frames, "full_width": full})
     for name, res in checks.items():
@@ -3170,10 +3316,13 @@ def mega_path_phase(rt, torch, nvidia_smi: str):
     require(full["finite"] and full["mean_diff_vs_default"] < MEAN_TOL
             and full["vs_default"]["ok"] and full["bit_equal_to_default"],
             f"the full-width mega='bounce' frame: {full}")
+    at_small = full["at_pool_32768"]
+    require(at_small["finite"] and at_small["bit_equal_to_default"],
+            f"the full-width mega='bounce' frame at 32768 lanes: {at_small}")
     main = checks[f"pool_{1 << 15}"]
     keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "lanes",
             "active", "max_abs_err", "int_mismatch",
-            "closest_hit_ms_same_rays")
+            "closest_hit_ms_same_rays", *CH_NEEDED, "k_sweep")
     return {"name": "mega_bounce", "route": "cuda",
             "source": "raytracinginoneweekend_tpu_torch/csrc/mega_bounce.cu",
             "replaces": "raytracinginoneweekend_tpu/ops/pallas_mega.py:155",
@@ -3185,6 +3334,10 @@ def mega_path_phase(rt, torch, nvidia_smi: str):
                                        for r in checks.values()),
             **{k: main[k] for k in keys[:7]},
             "closest_hit_ms_same_rays": main["closest_hit_ms_same_rays"],
+            **{k: main[k] for k in CH_NEEDED},
+            "split": main["k_sweep"]["picked"],
+            "k_sweep_ms": {k: v["ms"] for k, v in main["k_sweep"].items()
+                           if k != "picked"},
             "library_ms": None,
             "at_pool_1m": {k: checks[f"pool_{1 << 20}"][k] for k in keys}}
 
@@ -3576,18 +3729,24 @@ def cli_fit_phase(rt, torch, nvidia_smi: str):
 MEAN_TOL = 1e-3
 
 
-def closest_hit_sass(lib: str) -> dict:
-    """Facts of closest_hit_kernel, read from a built library with
-    cuobjdump: for each K (or "K?" for a kernel without the template),
-    registers, stack and local memory (-res-usage; a spill would show as
-    local memory), and from the SASS its instruction count, its CALLs, the
-    sqrt slow-path calls among them (a CALL within 8 instructions after a
-    MUFU.RSQ: the IEEE sqrtf leaves its fast path for arguments outside the
-    normal range, a negative one included), and ``sqrt_only_where_disc_ge_
-    0``: for every MUFU.RSQ, the nearest branch before it is ``@!Pn BRA``
-    and Pn was last set by ``FSETP.GE ... Rx, RZ`` on the register Rx that
-    the MUFU.RSQ takes -- a negative discriminant branches around the sqrt
-    and its slow path."""
+def split_loop_sass(lib: str, kernel: str, loop_only: bool) -> dict:
+    """Facts of a split-loop kernel (closest_hit_kernel,
+    closest_hit_sorted_kernel or mega_bounce_kernel), read from its built
+    library with cuobjdump: for each K, registers, stack and local memory
+    (-res-usage; a spill would show as local memory), and from the SASS
+    its instruction count, its CALLs, the sqrt slow-path calls among them
+    (a CALL within 8 instructions after a MUFU.RSQ: the IEEE sqrtf leaves
+    its fast path for arguments outside the normal range, a negative one
+    included), and ``sqrt_only_where_disc_ge_0``: for every MUFU.RSQ of
+    the sphere loop, the nearest branch before it is ``@!Pn BRA`` and Pn
+    was last set by ``FSETP.GE ... Rx, RZ`` on the register Rx that the
+    MUFU.RSQ takes -- a negative discriminant branches around the sqrt and
+    its slow path. The sphere loop is the whole of closest_hit_kernel;
+    with ``loop_only`` it is the code from the first 128-bit shared-memory
+    load (LDS.128: the loop reads the sphere table as float4s) to the last
+    branch back to one of them (the loop's back edge), which leaves out
+    the sorted kernel's exit terms (1 / sqrt(a) and |o - oc|, before the
+    loop) and the whole-bounce kernel's shade (after it)."""
     import re
     from raytracinginoneweekend_tpu_torch import kernels
 
@@ -3598,10 +3757,8 @@ def closest_hit_sass(lib: str) -> dict:
                               text=True, check=True).stdout
 
     def key(name):
-        if "closest_hit_kernel" not in name:
-            return None
-        k = re.search(r"closest_hit_kernelILi(\d+)E", name)
-        return f"K{k.group(1)}" if k else "K?"
+        k = re.search(rf"{kernel}ILi(\d+)E", name)
+        return f"K{k.group(1)}" if k else None
 
     out, cur = {}, None
     for line in dump("-res-usage").splitlines():
@@ -3615,16 +3772,18 @@ def closest_hit_sass(lib: str) -> dict:
                         "stack_bytes": int(use["STACK"]),
                         "local_bytes": int(use["LOCAL"])}
             cur = None
-    code, cur = {}, None
+    code, addr, cur = {}, {}, None
     for line in dump("-sass").splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             k = key(m.group(1))
             cur = code.setdefault(k, []) if k else None
+            at = addr.setdefault(k, []) if k else None
             continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
         if cur is not None and m:
-            cur.append(m.group(1))
+            at.append(int(m.group(1), 16))
+            cur.append(m.group(2))
 
     def guarded(ins, r):
         src = re.match(r"MUFU\.RSQ R\d+, (R\d+)", ins[r])
@@ -3645,15 +3804,26 @@ def closest_hit_sass(lib: str) -> dict:
         rsq = [i for i, x in enumerate(ins) if x.startswith("MUFU.RSQ")]
         slow = {i for r in rsq for i in range(r + 1, min(r + 9, len(ins)))
                 if ins[i].startswith("CALL")}
+        lds = [i for i, x in enumerate(ins) if x.startswith("LDS.128")]
+        end = lds[-1] if lds else -1
+        for i, x in enumerate(ins):  # the last back edge into the loop
+            b = re.search(r"\bBRA\b.*?0x([0-9a-f]+)$", x)
+            if b and lds and addr[name][lds[0]] <= int(b.group(1), 16) \
+                    <= addr[name][lds[-1]] and i > end:
+                end = i
+        loop = [r for r in rsq if not loop_only
+                or (lds and lds[0] < r < end)]
         out.setdefault(name, {}).update(
             sass_instructions=len(ins),
             calls=sum(x.startswith("CALL") for x in ins),
-            mufu_rsq=len(rsq), sqrt_slow_path_calls=len(slow),
-            sqrt_only_where_disc_ge_0=bool(rsq) and all(
-                guarded(ins, r) for r in rsq))
-    require(bool(out) and all("registers" in v and "mufu_rsq" in v
-                              for v in out.values()),
-            f"cuobjdump report of closest_hit_kernel incomplete: {out}")
+            mufu_rsq=len(rsq), mufu_rsq_sphere_loop=len(loop),
+            sqrt_slow_path_calls=len(slow),
+            sqrt_only_where_disc_ge_0=bool(loop) and all(
+                guarded(ins, r) for r in loop))
+    require(sorted(out) == sorted(f"K{k}" for k in (1, 2, 4, 8, 16, 32))
+            and all("registers" in v and "mufu_rsq" in v
+                    for v in out.values()),
+            f"cuobjdump report of {kernel} incomplete: {out}")
     return out
 
 
@@ -3737,13 +3907,18 @@ def main(argv=None) -> int:
     for name in kernels.ENTRIES:
         kernels.entry(name)
     try:
-        sass = closest_hit_sass(libs["closest_hit.cu"])
-        emit({"phase": "closest_hit_build", "kernels": sass})
-        require(sorted(sass) == sorted(f"K{k}" for k in (1, 2, 4, 8, 16, 32))
-                and all(v["sqrt_only_where_disc_ge_0"]
-                        for v in sass.values()),
-                "closest_hit_kernel takes a sqrt that a negative "
-                f"discriminant can reach: {sass}")
+        sass = {name: split_loop_sass(libs[f"{name}.cu"], f"{name}_kernel",
+                                      loop_only=name != "closest_hit")
+                for name in ("closest_hit", "closest_hit_sorted",
+                             "mega_bounce")}
+        emit({"phase": "closest_hit_build", "kernels": sass["closest_hit"],
+              "closest_hit_sorted": sass["closest_hit_sorted"],
+              "mega_bounce": sass["mega_bounce"]})
+        for name, facts in sass.items():
+            require(all(v["sqrt_only_where_disc_ge_0"]
+                        for v in facts.values()),
+                    f"{name}_kernel takes a sqrt in its sphere loop that a "
+                    f"negative discriminant can reach: {facts}")
         emit({"phase": "shade_regen_build",
               "kernels": shade_regen_sass(libs["shade_regen.cu"])})
     except Failed as e:

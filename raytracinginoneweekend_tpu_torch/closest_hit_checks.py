@@ -1,7 +1,10 @@
-"""Check cases and counts for the closest-hit kernel (``csrc/closest_hit.cu``).
+"""Check cases, counts and plain emulations for the split-loop closest-hit
+kernels (``csrc/closest_hit.cu``, ``csrc/closest_hit_sorted.cu`` and the
+loop of ``csrc/mega_bounce.cu``).
 
-``chip_smoke.py`` holds the kernel against them on the card and
-``tests/test_torch_closest_hit_split.py`` on the CPU:
+``chip_smoke.py`` holds the kernels against them on the card and
+``tests/test_torch_closest_hit_split.py`` / ``tests/test_torch_sorted_
+split.py`` on the CPU:
   * ``ties_and_grazes``: a small sphere table of its own whose answers are
     exact in float32 -- duplicate spheres split across the kernel's K-way
     partitions, an exact graze, a ray that misses everything;
@@ -9,12 +12,24 @@
   * ``disc_pairs``: how many (lane, sphere) pairs of an input reach the
     kernel's square root (discriminant >= 0). The rest stop after the
     discriminant and its compare, so the count gives the work that input
-    needs, from which ``chip_smoke.py`` states a second bound.
+    needs, from which ``chip_smoke.py`` states a second bound;
+  * ``split_min``: the K-way partition of a ray's scan and the warp
+    shuffles' lexicographic reduce, in numpy, over any tie key (the
+    sphere index of closest_hit and mega_bounce, the position in the
+    sorted order of closest_hit_sorted);
+  * ``sorted_split``: closest_hit_sorted as a whole -- its exit terms, the
+    stage vote of every thread over a warp of 32 / K rays, the partition
+    and the reduce over (q, position) -- in plain PyTorch and numpy, with
+    its count of skipped chunks.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+BIG = np.float32(1e30)
+WARP = 32
 
 # ties_and_grazes: pairs of identical spheres (first index, second index).
 # The second copy sits 1, 2, 4, 8, 16 or 32 places later, so for every K of
@@ -114,3 +129,117 @@ def disc_pairs(rays, cx, cy, cz, r, active=None,
         c = ocx * ocx + ocy * ocy + ocz * ocz - rr
         n_ge += int((b * b - a * c >= 0).sum())
     return n_ge, ox.shape[0] * rr.shape[1]
+
+
+def split_min(q: np.ndarray, k: int, key=None, thread=None):
+    """A split-loop kernel's scan of one ray per row, in numpy -> (q_b,
+    key_b) per row. ``q`` (n, m) holds the candidates in scan order;
+    ``thread[p]`` is the one of the K threads that tests position p (by
+    default p % K); ``key[p]`` is what the reduce breaks a tie on (by
+    default p). Each thread runs the ascending strict-`<` min over its
+    positions from (BIG, 0); then, for offsets K/2 ... 1, every thread
+    takes its xor-partner's pair when that is lexicographically smaller
+    in (q, key); thread 0's pair is the result."""
+    n, m = q.shape
+    key = np.arange(m) if key is None else np.asarray(key)
+    thread = np.arange(m) % k if thread is None else np.asarray(thread)
+    qb = np.full((n, k), BIG, np.float32)
+    kb = np.zeros((n, k), np.int64)
+    for p in range(m):
+        j = thread[p]
+        w = q[:, p] < qb[:, j]
+        qb[w, j] = q[w, p]
+        kb[w, j] = key[p]
+    off = k // 2
+    while off:
+        partner = np.arange(k) ^ off
+        oq, ok = qb[:, partner], kb[:, partner]
+        take = (oq < qb) | ((oq == qb) & (ok < kb))
+        qb, kb = np.where(take, oq, qb), np.where(take, ok, kb)
+        off //= 2
+    return qb[:, 0], kb[:, 0]
+
+
+def sorted_split(rays, cx, cy, cz, r, sortstate, t_min, rows: int, active,
+                 ladder, k: int):
+    """closest_hit_sorted at K threads a ray, step for step, in plain
+    PyTorch (float32, the kernel's operation order) and numpy -> ((hit, t,
+    sb) planes, (chunks skipped, chunks in all) counted per warp with an
+    active lane, as the kernel's ``stats``).
+
+    Per cull block the candidates in perm order; the exit terms (block
+    distance and slab exit with their slack); at each stage of the ladder
+    each thread's exit on its own best q so far (the min over the
+    positions it ran) and a vote over each warp of 32 / K consecutive
+    lanes, K threads each; the positions of a stage that runs go to thread
+    (p - lo*8) % K, and ``split_min`` reduces over (q, position), which
+    maps through perm."""
+    from .ops import cuda_segment as seg
+
+    perm, suf, oc, yb = sortstate
+    nb, s_pad = perm.shape
+    n_chunks = s_pad // seg.UNROLL
+    bl_lanes = rows * seg.LANES
+    w = WARP // k
+    act = (active if active.dtype == torch.bool else active > 0).reshape(
+        nb, bl_lanes)
+    ox, oy, oz, dx, dy, dz = (p.reshape(nb, bl_lanes) for p in rays)
+    a = dx * dx + dy * dy + dz * dz
+    inv_a = 1.0 / a
+    q_min = torch.tensor(t_min, dtype=torch.float32) * a
+    rsa = 1.0 / torch.sqrt(a)
+    blx, bly, blz = ox - oc[:, 0:1], oy - oc[:, 1:2], oz - oc[:, 2:3]
+    bl = torch.sqrt(blx * blx + bly * bly + blz * blz)
+    bl = bl + (bl * 5e-6 + 1e-4)
+    going = dy.abs() > 0
+    yexit = torch.where(dy > 0, yb[0], yb[1])
+    ex = ((yexit - oy) * (a * rsa)) / torch.where(going, dy,
+                                                  torch.ones_like(dy))
+    dist_up = torch.where(going, ex + (ex.abs() * 5e-6 + 1e-4),
+                          torch.full_like(ex, float(BIG)))
+    sky_done = ~act | (dist_up <= 0)
+    table = seg.hit_table_padded(cx, cy, cz, r)
+    cand = table[perm.to(torch.int64)][:, None]              # (B, 1, S, 4)
+    q = seg._candidates(*(v[..., None] for v in (ox, oy, oz, dx, dy, dz, a)),
+                        q_min[..., None], *(cand[..., c] for c in range(4)))
+    q = torch.where(act[..., None], q, torch.full_like(q, float(BIG)))
+
+    pts = seg.ladder_points(ladder, n_chunks)
+    q_thr = torch.full((nb, bl_lanes, k), float(BIG))  # each thread's q
+    run_pos = torch.zeros(nb, bl_lanes, s_pad, dtype=torch.bool)
+    thread = np.zeros(s_pad, np.int64)
+    warp_active = act.reshape(nb, -1, w).any(dim=2)
+    skipped = torch.zeros_like(warp_active, dtype=torch.int64)
+    lo = 0
+    for hi in pts + [n_chunks]:
+        p0, p1 = lo * seg.UNROLL, hi * seg.UNROLL
+        thread[p0:p1] = np.arange(p1 - p0) % k
+        if pts:
+            qd = torch.minimum(q_thr * rsa[..., None], dist_up[..., None])
+            done = sky_done[..., None] | (qd + bl[..., None]
+                                          <= suf[:, lo:lo + 1, None])
+            run = ~done.reshape(nb, -1, w * k).all(dim=2)
+        else:
+            run = torch.ones_like(warp_active)
+        skipped += (~run).to(torch.int64) * (hi - lo)
+        run_lane = run.repeat_interleave(w, dim=1)
+        run_pos[:, :, p0:p1] = run_lane[..., None]
+        for j in range(k):
+            mine = torch.from_numpy(np.nonzero(thread[p0:p1] == j)[0] + p0)
+            if mine.numel():
+                q_thr[..., j] = torch.where(run_lane, torch.minimum(
+                    q_thr[..., j], q[:, :, mine].amin(dim=2)), q_thr[..., j])
+        lo = hi
+    q_run = torch.where(run_pos, q, torch.full_like(q, float(BIG)))
+    q_b, pos = split_min(q_run.reshape(-1, s_pad).numpy(), k, thread=thread)
+    q_b = torch.from_numpy(q_b).reshape(nb, bl_lanes)
+    pos = torch.from_numpy(pos).reshape(nb, bl_lanes)
+    h = act & (q_b < float(BIG))
+    sb = torch.gather(perm.to(torch.int64), 1, pos).to(torch.int32)
+    shape = rays[0].shape
+    hit = h.to(torch.int32).reshape(shape)
+    t = torch.where(h, q_b * inv_a, torch.full_like(q_b, float(BIG)))
+    sb = torch.where(h, sb, torch.zeros_like(sb)).reshape(shape)
+    counted = warp_active
+    return (hit, t.reshape(shape), sb), (
+        int(skipped[counted].sum()), int(counted.sum()) * n_chunks)

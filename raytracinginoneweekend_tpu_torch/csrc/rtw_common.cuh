@@ -48,10 +48,10 @@ __device__ __forceinline__ float rtw_min(float a, float b) {
 
 // ---- ops/cuda_segment.py: the closest-hit candidate --------------------
 
-// One sphere's candidate for one ray, in q-space (q = t * |d|^2): the one
-// copy of the arithmetic that closest_hit_list, closest_hit_sorted and
-// mega_bounce share, and that closest_hit's rtw_closest_guarded repeats
-// to the bit (plain version: cuda_segment._candidates).
+// One sphere's candidate for one ray, in q-space (q = t * |d|^2): the
+// arithmetic of closest_hit_list's loop, which rtw_closest_guarded (the
+// loop of closest_hit, closest_hit_sorted and mega_bounce) repeats to the
+// bit (plain version: cuda_segment._candidates).
 // (x, y, z) origin, (vx, vy, vz) direction, a = |d|^2, q_min = t_min * a,
 // c4 = (cx, cy, cz, r*r). sqrtf of a negative discriminant is NaN and every
 // comparison with NaN is false, so a miss falls through to RTW_BIG; a pad
@@ -73,9 +73,10 @@ __device__ __forceinline__ float rtw_candidate(float x, float y, float z,
 }
 
 // rtw_candidate folded into the strict-`<` running min (q_b, s_b) of
-// sphere s, with the square root taken only where disc = b*b - a*c >= 0
-// (closest_hit's loop; closest_hit_list, closest_hit_sorted and
-// mega_bounce keep rtw_candidate). Bit-equal with
+// sphere s (an index: a sphere id, or a position in closest_hit_sorted's
+// perm order), with the square root taken only where disc = b*b - a*c >=
+// 0 (the loop of closest_hit, closest_hit_sorted and mega_bounce;
+// closest_hit_list keeps rtw_candidate). Bit-equal with
 // `q = rtw_candidate(...); if (q < q_b) { q_b = q; s_b = s; }`: where
 // disc >= 0 (an exact graze, disc == 0 or -0, included, as in the TPU
 // kernel) it does the same operations in the same order; where disc < 0

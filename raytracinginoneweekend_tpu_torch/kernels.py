@@ -67,19 +67,21 @@ ENTRIES = {
                              + [_I, _I, _I, _I, _F, _P]),
     # ladder (host ints) n_ladder | perm suf oc yb | act ox oy oz dx dy dz
     # | table4 (S+1) | hit t sb | stats | n_lanes n_spheres block_lanes
-    # n_chunks t_min | stream
+    # n_chunks t_min split | stream
     "rtw_closest_hit_sorted": ("closest_hit_sorted.cu",
                                [_P, _I] + [_P] * 4 + [_P] * 7 + [_P]
                                + [_P] * 3 + [_P]
-                               + [_I, _I, _I, _I, _F, _P]),
+                               + [_I, _I, _I, _I, _F, _I, _P]),
     # act ox oy oz dx dy dz | table4 (cx cy cz ccr) | hit t sb
     # | n_lanes n_spheres t_min | stream
     "rtw_closest_hit_mxu": ("closest_hit_mxu.cu",
                             [_P] * 7 + [_P] + [_P] * 3 + [_I, _I, _F, _P]),
     # state in ptrs (16) | state out ptrs (14) | table4 table10 | n_lanes
-    # n_spheres t_min max_depth unit_sample phys_refract sky_bias | stream
+    # n_spheres t_min max_depth unit_sample phys_refract sky_bias split
+    # | stream
     "rtw_mega_bounce": ("mega_bounce.cu",
-                        [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _F, _P]),
+                        [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _F, _I,
+                         _P]),
     # act ox oy oz dx dy dz | table4 (sorted, S_pad) bounds4 | hit t sb
     # | stats | n_lanes n_groups t_min | stream
     "rtw_closest_hit_grouped": ("closest_hit_grouped.cu",

@@ -7,15 +7,21 @@ wavefront engine's ``mega="bounce"`` step (ops/wavefront.py) is plain
 
 KERNEL NOTE. ``mega_bounce`` on CUDA tensors launches
 ``csrc/mega_bounce.cu``, which replaces the Pallas TPU kernel
-``pallas_mega.py::_kernel_mega``. It is bound by float32 arithmetic:
-closest_hit's loop (about 27 operations per active lane and sphere)
-dominates, against 30 words a lane of traffic. The design is one thread
-per lane over plane-per-quantity arrays, with the (cx, cy, cz, r*r) table
-and the (S, 10) parameter table both in shared memory, so the winner's
-parameters are a direct read (the TPU kernel's transposed one-hot product
-has no counterpart); an inactive lane copies its state through (see the
-source's header). ``mega_bounce_reference`` is its plain PyTorch version:
-closest_hit's plain version, the winner's parameters by index, the hit
+``pallas_mega.py::_kernel_mega``. It is bound by float32 instruction
+issue: closest_hit's loop (about 27 operations per active lane and
+sphere, 18 where the discriminant is negative) dominates, against 30
+words a lane of traffic. The design is closest_hit's split loop -- K
+threads a ray (``cuda_segment.closest_hit_split`` with
+``SPLIT_THREADS_PER_SM``), reduced over (q, sphere index) with warp
+shuffles, the square root only where the discriminant is >= 0 -- then
+one thread a lane for the lookup, draws, shade and writes, over
+plane-per-quantity arrays, with the (cx, cy, cz, r*r) table and the (S,
+10) parameter table both in shared memory, so the winner's parameters
+are a direct read (the TPU kernel's transposed one-hot product has no
+counterpart); an inactive lane copies its state through (see the source's
+header). Every K gives the same result to the bit.
+``mega_bounce_reference`` is its plain PyTorch version: closest_hit's
+plain version, the winner's parameters by index, the hit
 point and normal of ``cuda_segment.surface_from_params`` and
 ``planar.bounce_planar`` -- the same float32 operations in the same order
 as the kernel (the TPU kernel's 8-way tournament only reorders strict-<
@@ -33,9 +39,11 @@ import torch
 
 from .. import kernels
 from . import planar
-from .cuda_segment import (LANES, check_current_device, hit_table,
-                           resolve_params, segment_closest_hit_reference,
-                           sphere_table, surface_from_params)
+from .cuda_segment import (LANES, SPLIT_THREADS_PER_SM,
+                           check_current_device, check_split, hit_table,
+                           picked_split, resolve_params,
+                           segment_closest_hit_reference, sphere_table,
+                           surface_from_params)
 
 N_IN = 16   # active, ox oy oz dx dy dz, ax ay az, accr accg accb, depth, k0 k1
 N_OUT = 14  # ox oy oz dx dy dz, ax ay az, accr accg accb, keep, depth
@@ -87,7 +95,7 @@ def mega_bounce_reference(state_planes, sphere_params, *, t_min: float,
 
 def mega_bounce(state_planes, sphere_params, *, t_min: float,
                 max_depth: int, unit_sample: bool, phys_refract: bool,
-                sky_bias: float, tables=None, out=None):
+                sky_bias: float, tables=None, out=None, split=None):
     """One full wavefront bounce on planar lane state.
 
     state_planes: (active, ox, oy, oz, dx, dy, dz, ax, ay, az, accr, accg,
@@ -99,6 +107,8 @@ def mega_bounce(state_planes, sphere_params, *, t_min: float,
       kernel reads all of a lane's planes before it writes any, so they
       may be the state's own planes (the engine updates in place: ox ... dz,
       ax ... accb and depth, and ``active`` for keep).
+    split: forces the kernel's K (one of ``cuda_segment.CH_SPLITS``) in
+      place of the picked one; for measuring, it changes no result.
     Returns (ox, oy, oz, dx, dy, dz, ax, ay, az, accr, accg, accb, keep,
     depth): the post-bounce lane state, keep as an i32 0/1 plane (the
     port's lane state keeps ``active`` as i32; the JAX package returns a
@@ -107,6 +117,7 @@ def mega_bounce(state_planes, sphere_params, *, t_min: float,
     """
     kw = dict(t_min=t_min, max_depth=max_depth, unit_sample=unit_sample,
               phys_refract=phys_refract, sky_bias=sky_bias)
+    check_split("mega_bounce", split)
     if len(state_planes) != N_IN:
         raise ValueError(f"mega_bounce: {len(state_planes)} state planes; "
                          f"it takes {N_IN}")
@@ -158,12 +169,15 @@ def mega_bounce(state_planes, sphere_params, *, t_min: float,
             raise ValueError(f"mega_bounce: out must be {N_OUT} contiguous "
                              f"planes of shape {tuple(shape)} on {device} "
                              "(12 float32, then keep and depth int32)")
+    if split is None:
+        split = picked_split(planes[1].numel(), device.index,
+                             SPLIT_THREADS_PER_SM)
     ptrs_in = (ctypes.c_void_p * N_IN)(*(p.data_ptr() for p in planes))
     ptrs_out = (ctypes.c_void_p * N_OUT)(*(p.data_ptr() for p in out))
     fn = kernels.entry("rtw_mega_bounce")
     err = fn(ptrs_in, ptrs_out, table4.data_ptr(), table10.data_ptr(),
              planes[1].numel(), n_spheres, float(t_min), int(max_depth),
-             int(unit_sample), int(phys_refract), float(sky_bias),
+             int(unit_sample), int(phys_refract), float(sky_bias), split,
              torch.cuda.current_stream(device).cuda_stream)
     kernels.check(err, "mega_bounce")
     kernels.LAUNCHES["mega_bounce"] += 1

@@ -33,9 +33,12 @@ KERNEL NOTES, the four siblings (each source's header has the detail):
     the list holds the true winner.
   * ``segment_closest_hit_sorted`` launches ``csrc/closest_hit_sorted.cu``
     (replaces ``_kernel_sorted``): spheres in per-cull-block distance
-    order, stages of the loop skipped when every lane of a warp provably
-    cannot improve. Bound by arithmetic when nothing is skipped. Equal to
-    ``segment_closest_hit`` except on exact q ties between two spheres.
+    order, stages of the loop skipped when every ray of a warp provably
+    cannot improve; kernel 1's split loop (K threads a ray from
+    ``closest_hit_split`` with ``SPLIT_THREADS_PER_SM``, reduced over (q,
+    position in the sorted order)) and guarded square root. Bound by
+    arithmetic when nothing is skipped. Equal to ``segment_closest_hit``
+    except on exact q ties between two spheres.
   * ``segment_closest_hit_grouped`` launches
     ``csrc/closest_hit_grouped.cu`` (replaces ``_kernel_grouped``): the
     spheres sorted into groups of 16 by ``group_scene``, each group behind
@@ -283,17 +286,25 @@ def _outputs(shape, device):
 # power of two up to a warp.
 CH_SPLITS = (1, 2, 4, 8, 16, 32)
 # Threads an SM that closest_hit_split aims the grid at (chip_smoke.py's
-# sweep of K at the kernel's three shapes; PERF.md).
+# sweep of K at the kernel's three shapes; PERF.md) ...
 CH_THREADS_PER_SM = 1024
+# ... and for closest_hit_sorted and mega_bounce, whose K sweeps are
+# fastest at half of that: the sorted kernel gathers its cull block's
+# spheres once a thread block, the whole-bounce kernel's shade holds 54
+# registers a thread (chip_smoke.py; PERF.md).
+SPLIT_THREADS_PER_SM = 512
 
 
-def closest_hit_split(n_lanes: int, n_sms: int) -> int:
+def closest_hit_split(n_lanes: int, n_sms: int,
+                      threads_per_sm: int = CH_THREADS_PER_SM) -> int:
     """K for ``csrc/closest_hit.cu``: the smallest power of two, at most
-    32, for which ``n_lanes * K`` threads put ``CH_THREADS_PER_SM`` threads
-    on each of the card's ``n_sms`` SMs (with 132 SMs: 8 at the default
-    pool's 32768 lanes, 2 at the train shape's 131072, 1 at 2^20)."""
+    32, for which ``n_lanes * K`` threads put ``threads_per_sm`` threads
+    on each of the card's ``n_sms`` SMs (with 132 SMs and
+    ``CH_THREADS_PER_SM``: 8 at the default pool's 32768 lanes, 2 at the
+    train shape's 131072, 1 at 2^20; with ``SPLIT_THREADS_PER_SM``, for
+    the sorted and whole-bounce kernels, 4 at 32768 lanes, 1 at 2^20)."""
     k = CH_SPLITS[0]
-    while k < CH_SPLITS[-1] and n_lanes * k < n_sms * CH_THREADS_PER_SM:
+    while k < CH_SPLITS[-1] and n_lanes * k < n_sms * threads_per_sm:
         k *= 2
     return k
 
@@ -301,6 +312,23 @@ def closest_hit_split(n_lanes: int, n_sms: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def picked_split(n_lanes: int, device_index: int,
+                 threads_per_sm: int = CH_THREADS_PER_SM) -> int:
+    """``closest_hit_split`` on this card, worked out once per lane count:
+    the K of closest_hit, or with ``SPLIT_THREADS_PER_SM`` of
+    closest_hit_sorted and mega_bounce."""
+    return closest_hit_split(n_lanes, _sm_count(device_index),
+                             threads_per_sm)
+
+
+def check_split(name: str, split) -> None:
+    """``split=`` forces a split-loop kernel's K (for measuring only)."""
+    if split is not None and split not in CH_SPLITS:
+        raise ValueError(f"{name}: split must be one of {CH_SPLITS}; "
+                         f"got {split!r}")
 
 
 def segment_closest_hit(rays, cx, cy, cz, r, t_min, active=None, table=None,
@@ -317,9 +345,7 @@ def segment_closest_hit(rays, cx, cy, cz, r, t_min, active=None, table=None,
     ``closest_hit_split``'s; it is for measuring the kernel and changes no
     result.
     """
-    if split is not None and split not in CH_SPLITS:
-        raise ValueError(f"closest_hit: split must be one of {CH_SPLITS}; "
-                         f"got {split!r}")
+    check_split("closest_hit", split)
     ox = rays[0]
     if ox.device.type == "cpu":
         return segment_closest_hit_reference(rays, cx, cy, cz, r, t_min,
@@ -330,7 +356,7 @@ def segment_closest_hit(rays, cx, cy, cz, r, t_min, active=None, table=None,
         table = hit_table(cx, cy, cz, r)
     _check_table("closest_hit", table, n_spheres, device)
     if split is None:
-        split = closest_hit_split(ox.numel(), _sm_count(device.index))
+        split = picked_split(ox.numel(), device.index)
     hit, t, sb = _outputs(shape, device)
     fn = kernels.entry("rtw_closest_hit")
     err = fn(act.data_ptr(), *(p.data_ptr() for p in rays),
@@ -565,7 +591,7 @@ def segment_closest_hit_sorted_reference(rays, cx, cy, cz, r, sortstate,
 def segment_closest_hit_sorted(rays, cx, cy, cz, r, sortstate, t_min,
                                rows: int = 128, active=None,
                                ladder: tuple = (1, 8), table=None,
-                               stats=None):
+                               stats=None, split=None):
     """Distance-ordered early-exit closest hit.
 
     sortstate: the tuple from sorted_cull_state (same rows). ladder: chunk
@@ -573,11 +599,14 @@ def segment_closest_hit_sorted(rays, cx, cy, cz, r, sortstate, t_min,
     ``hit_table_padded(cx, cy, cz, r)``. stats: optional (2,) int64 CUDA
     tensor the kernel ADDS (chunks skipped, chunks in all), counted per
     warp with an active lane, to -- how often the exit fires.
+    split: forces the kernel's K (one of ``CH_SPLITS``) in place of
+    ``closest_hit_split``'s; for measuring, it changes no result.
     Results are identical to segment_closest_hit except on exact f32 q
     ties between distinct spheres (sorted-order vs id-order tie winner).
     CUDA tensors go through the hand-written kernel; CPU tensors through
     the plain version.
     """
+    check_split("closest_hit_sorted", split)
     ox = rays[0]
     if ox.device.type == "cpu":
         if stats is not None:
@@ -603,6 +632,8 @@ def segment_closest_hit_sorted(rays, cx, cy, cz, r, sortstate, t_min,
         table = hit_table_padded(cx, cy, cz, r)
     _check_table(name, table, n_spheres + 1, device)
     perm, suf, oc, yb = sortstate
+    if split is None:
+        split = picked_split(ox.numel(), device.index, SPLIT_THREADS_PER_SM)
     hit, t, sb = _outputs(shape, device)
     c_ladder = (ctypes.c_int * max(len(pts), 1))(*pts)
     fn = kernels.entry("rtw_closest_hit_sorted")
@@ -611,7 +642,7 @@ def segment_closest_hit_sorted(rays, cx, cy, cz, r, sortstate, t_min,
              *(p.data_ptr() for p in rays), table.data_ptr(),
              hit.data_ptr(), t.data_ptr(), sb.data_ptr(),
              None if stats is None else stats.data_ptr(), ox.numel(),
-             n_spheres, rows * LANES, n_chunks, float(t_min),
+             n_spheres, rows * LANES, n_chunks, float(t_min), split,
              torch.cuda.current_stream(device).cuda_stream)
     kernels.check(err, name)
     kernels.LAUNCHES["closest_hit_sorted"] += 1

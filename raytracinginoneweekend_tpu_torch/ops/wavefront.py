@@ -48,8 +48,10 @@ one eager epoch the engine captures the next as a CUDA graph
 (``capture_epoch``) and replays it for every later epoch, which leaves the
 host one graph launch and one read an epoch instead of ~70 launches of
 Python wrappers (``build_engine(graph=False)`` keeps the eager loop, for
-measuring; the sorted kernel's frames, whose sort state is rebuilt every
-epoch, and ``plain=True`` run eagerly). A capture that fails raises.
+measuring; ``plain=True`` runs eagerly). The sorted kernel's sort state is
+rebuilt at the start of every epoch from the current lane origins, inside
+the epoch and so inside its graph, as the JAX package's jitted epoch does.
+A capture that fails raises.
 
 RNG discipline is ops/rng.py's (pixel, sample, tag, word) contract, so
 this engine produces the same per-ray radiance as the JAX package's; only
@@ -384,8 +386,10 @@ def engine_prologue(eng: Engine) -> tuple:
 
 def engine_sortstate(eng: Engine, state: tuple):
     """The sorted kernel's per-block order and bounds from the CURRENT
-    lane origins (None for the other kernels). Once per epoch: staleness
-    within the epoch loosens but never breaks the bounds."""
+    lane origins (None for the other kernels). Once per epoch, at its
+    start (``engine_epoch``): staleness within the epoch loosens but never
+    breaks the bounds. All device work with static shapes and no read to
+    the host, so a captured epoch rebuilds it at every replay."""
     if eng.hit_kernel != "sorted":
         return None
     return sorted_cull_state(state[ACT], state[4:7], *eng.sphere_params[:4],
@@ -553,11 +557,15 @@ def more(ledger: Ledger, state: tuple) -> bool:
 
 def engine_epoch(eng: Engine, state: tuple, ledger: Ledger, sortstate=None,
                  segs=None) -> tuple:
-    """One epoch: ``flush_every`` iterations (under the unrotated steps a
-    regen before each segment), then the flush -> the next lane state (on
-    the card the same planes, updated in place). ``segs``: an optional
-    device scalar that counts the lanes that trace (after the regen under
-    the unrotated steps)."""
+    """One epoch: the sorted kernel's sort state from the epoch's first
+    lane state (``engine_sortstate``; ``sortstate`` passes one in),
+    ``flush_every`` iterations (under the unrotated steps a regen before
+    each segment), then the flush -> the next lane state (on the card the
+    same planes, updated in place). ``segs``: an optional device scalar
+    that counts the lanes that trace (after the regen under the unrotated
+    steps)."""
+    if sortstate is None:
+        sortstate = engine_sortstate(eng, state)
     for _ in range(eng.flush_every):
         if eng.mega != "fused":
             state = engine_regen(eng, state)
@@ -570,10 +578,8 @@ def engine_epoch(eng: Engine, state: tuple, ledger: Ledger, sortstate=None,
 
 def epoch_graphable(eng: Engine) -> bool:
     """Whether the loop replays this engine's epochs as a CUDA graph: on
-    the card, with the kernels, unless asked not to (``graph=False``) or
-    the epoch reads a sort state that is rebuilt every epoch (the sorted
-    kernel's frames run eagerly)."""
-    return eng.graph and _on_card(eng) and eng.hit_kernel != "sorted"
+    the card, with the kernels, unless asked not to (``graph=False``)."""
+    return eng.graph and _on_card(eng)
 
 
 def capture_epoch(eng: Engine, state: tuple, ledger: Ledger, segs=None,
@@ -583,9 +589,13 @@ def capture_epoch(eng: Engine, state: tuple, ledger: Ledger, segs=None,
 
     Capture launches nothing: a replay runs the epoch on the same planes
     (the state, the ledger, ``segs``), which must have stayed where they
-    are -- the epoch updates them in place. The kernels must have been
-    built and launched once (an eager epoch), so that nothing is compiled
-    or loaded during the capture. The wrappers count their launches in
+    are -- the epoch updates them in place. The sorted kernel's sort state
+    is computed inside the captured epoch (its tensors come from the
+    graph's memory pool), so every replay rebuilds it from the lanes of
+    that epoch; its ladder is fixed per engine and baked into the captured
+    launches. The kernels must have been built and launched once (an
+    eager epoch), so that nothing is compiled or loaded during the
+    capture. The wrappers count their launches in
     Python, which runs only now: the counts are taken back here, and the
     caller adds ``per_epoch`` at every replay (kernels.add_launches).
     ``keep_graph`` keeps the captured cudaGraph_t for inspection
@@ -594,8 +604,7 @@ def capture_epoch(eng: Engine, state: tuple, ledger: Ledger, segs=None,
     """
     if not epoch_graphable(eng):
         raise ValueError("capture_epoch: this engine's epoch runs eagerly "
-                         "(graph=False, plain, off the card, or the sorted "
-                         "kernel)")
+                         "(graph=False, plain or off the card)")
     graph = (torch.cuda.CUDAGraph(keep_graph=True) if keep_graph
              else torch.cuda.CUDAGraph())
     before = dict(kernels.LAUNCHES)
@@ -669,8 +678,7 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *,
             kernels.LAUNCHES.update(
                 kernels.add_launches(kernels.LAUNCHES, per_epoch))
         else:
-            state = engine_epoch(eng, state, ledger,
-                                 engine_sortstate(eng, state), segs)
+            state = engine_epoch(eng, state, ledger, segs=segs)
         iters += eng.flush_every
 
     fb = fold_ledger(eng, ledger.cells)

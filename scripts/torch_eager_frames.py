@@ -5,8 +5,9 @@ Renders the serving frame of the PyTorch/CUDA port (huge scene, 1200x800
 reference CPU camera, thin lens, 100 spp, depth 50, key 0) at a pool of
 2^15 lanes through the frames that launch every iteration's kernels from
 Python: the default step with the epoch NOT replayed as a CUDA graph, and
-the sorted closest-hit kernel under strided and tile ownership (whose
-frames always run eagerly: their sort state is rebuilt every epoch). Each
+the sorted closest-hit kernel under strided and tile ownership, also not
+replayed (a package from before the sorted epochs were graphed runs them
+eagerly whatever it is asked). Each
 frame is rendered twice after a small warm-up frame of its own options.
 Prints one JSON object per frame (seconds of each run by the host's clock
 around work that ends in a synchronise, the process's CPU seconds over the
@@ -70,11 +71,12 @@ def main() -> int:
     scene = cli._build_scene("huge", 0, dev)
     has_graph = "graph" in inspect.signature(wavefront.build_engine).parameters
     rep = dataclasses.replace
+    eager = {"graph": False} if has_graph else {}
     frames = {
-        "default_eager": (rt.DEFAULT, {"graph": False} if has_graph else {}),
-        "sorted": (rep(rt.DEFAULT, hit_kernel="sorted"), {}),
+        "default_eager": (rt.DEFAULT, eager),
+        "sorted": (rep(rt.DEFAULT, hit_kernel="sorted"), eager),
         "sorted_tile": (rep(rt.DEFAULT, hit_kernel="sorted",
-                            ownership="tile"), {}),
+                            ownership="tile"), eager),
     }
 
     def render(options, kw, w, h, spp):

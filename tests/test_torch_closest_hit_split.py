@@ -7,9 +7,10 @@ the discriminant is >= 0. A CUDA kernel cannot run here; ``chip_smoke.py``
 holds it to the bit against its plain version on the card. These tests
 hold what the CPU can reach, with no tolerance (every comparison is exact):
   * a plain emulation of the K-way strided partition and the butterfly
-    reduce equals ``torch.min``'s first index -- what the plain version
-    returns -- for every K, on q arrays with ties planted across
-    partitions, rows that miss everything and exact equalities;
+    reduce (``closest_hit_checks.split_min``) equals ``torch.min``'s first
+    index -- what the plain version returns -- for every K, on q arrays
+    with ties planted across partitions, rows that miss everything and
+    exact equalities;
   * the guarded candidate equals the unguarded one bit for bit;
   * the picker ``closest_hit_split``;
   * the ``ties_and_grazes`` table (``closest_hit_checks``) through the
@@ -36,30 +37,6 @@ torch.set_num_threads(2)  # several test workers share the machine's cores
 BIG = np.float32(1e30)
 SPLITS = (1, 2, 4, 8, 16, 32)
 H100_SMS = 132
-
-
-def split_min(q: np.ndarray, k: int):
-    """The kernel's loop for one K in plain numpy -> (q_b, s_b) per row.
-    Thread j runs the ascending strict-`<` min over spheres j, j + K, ...
-    from (BIG, 0); then, for offsets K/2 ... 1, every thread takes its
-    xor-partner's pair when that is lexicographically smaller in (q, s);
-    thread 0 writes the result."""
-    n, n_sph = q.shape
-    qb = np.full((n, k), BIG, np.float32)
-    sb = np.zeros((n, k), np.int64)
-    for j in range(k):
-        for s in range(j, n_sph, k):
-            w = q[:, s] < qb[:, j]
-            qb[w, j] = q[w, s]
-            sb[w, j] = s
-    off = k // 2
-    while off:
-        partner = np.arange(k) ^ off
-        oq, os_ = qb[:, partner], sb[:, partner]
-        take = (oq < qb) | ((oq == qb) & (os_ < sb))
-        qb, sb = np.where(take, oq, qb), np.where(take, os_, sb)
-        off //= 2
-    return qb[:, 0], sb[:, 0]
 
 
 def _planted_ties(g, n_sph=96):
@@ -118,7 +95,7 @@ CASES = {"planted_ties": _planted_ties, "all_big": _all_big,
 @pytest.mark.parametrize("k", SPLITS)
 def test_split_reduce_is_first_min(case, k):
     q = CASES[case](np.random.default_rng(k))
-    q_b, s_b = split_min(q, k)
+    q_b, s_b = chk.split_min(q, k)
     want_q, want_s = torch.min(torch.from_numpy(q), dim=1)
     np.testing.assert_array_equal(q_b.view(np.int32),
                                   want_q.numpy().view(np.int32))
