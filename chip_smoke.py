@@ -13,9 +13,10 @@ not build, launch or agree with its plain PyTorch version, when the main
 path did not go through a kernel, or when any phase's check fails.
 
 Phases (one JSON object per line on standard output):
-  closest_hit_build  for each K of the three split loops -- closest_hit,
-                   closest_hit_sorted and mega_bounce -- read from the
-                   built libraries (cuobjdump -res-usage -sass):
+  closest_hit_build  for each K of the five split loops -- closest_hit,
+                   closest_hit_sorted, mega_bounce, closest_hit_mxu and
+                   closest_hit_list -- read from the built libraries
+                   (cuobjdump -res-usage -sass):
                    registers, stack and local memory, the routines it
                    calls, among them any sqrt slow path, and whether every
                    sqrt of the sphere loop sits behind the disc >= 0 branch
@@ -57,7 +58,10 @@ Phases (one JSON object per line on standard output):
                    mid-frame with its real candidate lists (2^20 and 16384
                    primary lanes) and on synthetic lists (full lists, a
                    40-sphere sublist against the sub-scene, empty lists,
-                   inactive blocks); closest_hit_sorted on the single
+                   inactive blocks; ``ties_and_grazes`` with lists whose
+                   order runs against the ids), at every K (1 ... 32)
+                   bit-equal with its plain version and timed on the real
+                   lists (its K sweep); closest_hit_sorted on the single
                    pool's mid-frame state under strided and under tile
                    ownership with a sort state half an epoch old, ladders
                    (4,) and (1, 8), with the kernel's own count of the
@@ -66,8 +70,11 @@ Phases (one JSON object per line on standard output):
                    with its plain version and timed (its K sweep, with the
                    share skipped at each K), and on synthetic rays (no ladder,
                    rays outside the slab heading away, dy = 0, inactive
-                   lanes); closest_hit_mxu on the same states and on
-                   closest_hit's synthetic cases. shade_regen also under
+                   lanes); closest_hit_mxu on the same states, at every
+                   K bit-equal with its plain version and timed (its K
+                   sweep), on closest_hit's synthetic cases and on
+                   ``ties_and_grazes`` with its own table at every K.
+                   shade_regen also under
                    tile ownership. Times:
                    ``ms`` is the kernel's device time (launches queued
                    behind other work, so the host's launch overhead is
@@ -482,48 +489,63 @@ def closest_hit_needed(rays, geom, active, t_bytes: float) -> dict:
     return needed_bound(n_pairs, n_ge, t_bytes)
 
 
-def synthetic_ties_and_grazes(torch, dev):
-    """ties_and_grazes through closest_hit at every K and through its plain
-    version: each bit-equal with the exact expectation."""
+def synthetic_ties_and_grazes(torch, dev, what: str = "closest_hit"):
+    """ties_and_grazes through closest_hit (or closest_hit_mxu, with its
+    own table) at every K and through its plain version: each bit-equal
+    with the exact expectation."""
     from raytracinginoneweekend_tpu_torch import closest_hit_checks as chk
     from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
 
+    kernel, plain = {
+        "closest_hit": (seg.segment_closest_hit,
+                        seg.segment_closest_hit_reference),
+        "closest_hit_mxu": (seg.segment_closest_hit_mxu,
+                            seg.segment_closest_hit_mxu_reference)}[what]
     rays, geom, t_min, want = chk.ties_and_grazes(dev)
-    out = {"plain": chk.bit_diff(seg.segment_closest_hit_reference(
-        rays, *geom, t_min), want)}
+    out = {"plain": chk.bit_diff(plain(rays, *geom, t_min), want)}
     for k in seg.CH_SPLITS:
-        got = seg.segment_closest_hit(rays, *geom, t_min, split=k)
+        got = kernel(rays, *geom, t_min, split=k)
         torch.cuda.synchronize()
         out[f"K{k}"] = chk.bit_diff(got, want)
     for name, res in out.items():
-        require(not any(res.values()), f"closest_hit ({name}) misses the "
+        require(not any(res.values()), f"{what} ({name}) misses the "
                 f"exact result of ties_and_grazes: {res}")
     return out
 
 
-def closest_hit_sweep(torch, rays, geom, t_min, active, table=None):
-    """closest_hit at every K of its split loop (``CH_SPLITS``) against its
-    plain version on one input, to the bit on every lane (hit, sphere
+def k_sweep(torch, what: str, run, want, n_lanes: int,
+            threads_per_sm: int) -> dict:
+    """A split-loop kernel at every K (``CH_SPLITS``) against its plain
+    version's ``want`` on one input, to the bit on every lane (hit, sphere
     index, the bits of t), and each K's device time -> {"K<k>": {...},
-    "picked": the K that closest_hit_split gives these lanes}."""
+    "picked": the K that closest_hit_split aimed at ``threads_per_sm``
+    gives ``n_lanes``}. ``run(k)`` launches the kernel at K = k."""
     from raytracinginoneweekend_tpu_torch.closest_hit_checks import bit_diff
     from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
 
-    want = seg.segment_closest_hit_reference(rays, *geom, t_min, active)
     out = {}
     for k in seg.CH_SPLITS:
-        def run(k=k):
-            return seg.segment_closest_hit(rays, *geom, t_min, active=active,
-                                           table=table, split=k)
-
-        diff = bit_diff(run(), want)
-        require(not any(diff.values()), f"closest_hit at K = {k} is not "
+        diff = bit_diff(run(k), want)
+        require(not any(diff.values()), f"{what} at K = {k} is not "
                 f"bit-equal with its plain version: {diff}")
-        out[f"K{k}"] = dict(diff, ms=device_ms(run))
+        out[f"K{k}"] = dict(diff, ms=device_ms(functools.partial(run, k)))
     out["picked"] = seg.closest_hit_split(
-        rays[0].numel(), torch.cuda.get_device_properties(
-            rays[0].device).multi_processor_count)
+        n_lanes, torch.cuda.get_device_properties(
+            torch.cuda.current_device()).multi_processor_count,
+        threads_per_sm)
     return out
+
+
+def closest_hit_sweep(torch, rays, geom, t_min, active, table=None):
+    """closest_hit's ``k_sweep`` on one input."""
+    from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
+
+    return k_sweep(
+        torch, "closest_hit",
+        lambda k: seg.segment_closest_hit(rays, *geom, t_min, active=active,
+                                          table=table, split=k),
+        seg.segment_closest_hit_reference(rays, *geom, t_min, active),
+        rays[0].numel(), seg.CH_THREADS_PER_SM)
 
 
 def synthetic_closest_hit(torch, geom, t_min, lanes: int, kernel=None,
@@ -1217,10 +1239,48 @@ def random_rays(torch, dev, lanes: int, seed: int):
     return tuple(x.contiguous().to(dev) for x in (*o, *d)), gen
 
 
+def list_pairs_ge(rays, geom, counts, lists, act, rows: int) -> int:
+    """The (active lane, list entry of its cull block) pairs whose
+    discriminant is >= 0 -- the pairs that go on to the list kernel's
+    square root -- with kernel 1's float32 arithmetic (the pad sphere's
+    discriminant is < 0)."""
+    from raytracinginoneweekend_tpu_torch.closest_hit_checks import (
+        disc_pairs)
+
+    nb, n_sph = counts.numel(), geom[0].shape[0]
+    planes = [p.reshape(nb, rows * 128) for p in rays]
+    live = (act > 0).reshape(nb, rows * 128)
+    n_ge = 0
+    for b, n in enumerate(counts.clamp(0, lists.shape[1]).tolist()):
+        ids = lists[b, :n].long()
+        ids = ids[ids < n_sph]
+        if ids.numel() and bool(live[b].any()):
+            n_ge += disc_pairs(tuple(p[b][live[b]] for p in planes),
+                               *(g[ids] for g in geom))[0]
+    return n_ge
+
+
+def list_sweep(torch, rays, geom, counts, lists, t_min, rows, act, table,
+               what: str) -> dict:
+    """closest_hit_list's ``k_sweep`` on one input."""
+    from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
+
+    return k_sweep(
+        torch, what,
+        lambda k: seg.segment_closest_hit_list(
+            rays, *geom, counts, lists, t_min, rows=rows, active=act,
+            table=table, split=k),
+        seg.segment_closest_hit_list_reference(rays, *geom, counts, lists,
+                                               t_min, rows, act),
+        rays[0].numel(), seg.LIST_THREADS_PER_SM)
+
+
 def list_kernel_checks(rt, torch):
     """closest_hit_list: the dual engine's primary pool in mid-frame at two
-    pool sizes (its real counts and lists), and synthetic lists."""
+    pool sizes (its real counts and lists; at every K, its K sweep), and
+    synthetic lists at every K."""
     from raytracinginoneweekend_tpu_torch import cli
+    from raytracinginoneweekend_tpu_torch import closest_hit_checks as chk
     from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
     from raytracinginoneweekend_tpu_torch.ops import wavefront_dual as dual
 
@@ -1272,6 +1332,9 @@ def list_kernel_checks(rt, torch):
         # list entries of the cull blocks that hold an issuing lane
         used = counts[per_block > 0]
         n_sph = geom[0].shape[0]
+        nbytes = (lane_bytes(lanes, res["active"]) + counts.numel() * 4
+                  + int(used.sum()) * 4
+                  + int(lists[per_block > 0].unique().numel()) * 16)
         res.update(
             lanes=lanes, cull_blocks=int(counts.numel()), spheres=n_sph,
             list_len=int(lists.shape[1]),
@@ -1280,16 +1343,19 @@ def list_kernel_checks(rt, torch):
             max_list=int(counts.max()),
             candidates_per_active_lane=cand_lane / max(res["active"], 1),
             **times(lambda: kernel(rays, issue), lambda: plain(rays, issue)),
-            **bound(cand_lane * CH_FLOPS_PER_SPHERE,
-                    lane_bytes(lanes, res["active"]) + counts.numel() * 4
-                    + int(used.sum()) * 4
-                    + int(lists[per_block > 0].unique().numel()) * 16))
+            **bound(cand_lane * CH_FLOPS_PER_SPHERE, nbytes),
+            **needed_bound(cand_lane, list_pairs_ge(rays, geom, counts,
+                                                    lists, issue, rows),
+                           nbytes / PEAK_BYTES_PER_S),
+            k_sweep=list_sweep(torch, rays, geom, counts, lists, t_min, rows,
+                               issue, table, f"closest_hit_list (pool "
+                               f"{pool})"))
         res["closest_hit_ms_same_rays"] = device_ms(
             lambda: seg.segment_closest_hit(rays, *geom, t_min, active=issue,
                                             table=eng.htable))
         out[f"pool_{pool}"] = res
 
-    # synthetic lists on four cull blocks of 64 rows
+    # synthetic lists on four cull blocks of 64 rows, each at every K
     rows, nb = 64, 4
     lanes = nb * rows * 128
     rays, gen = random_rays(torch, dev, lanes, 21)
@@ -1301,39 +1367,65 @@ def list_kernel_checks(rt, torch):
     full_lists = ids_full[None, :].repeat(nb, 1).contiguous()
     full_counts = torch.full((nb,), l_len, dtype=torch.int32, device=dev)
     want = seg.segment_closest_hit(rays, *geom, t_min, active=ones)
-    got = seg.segment_closest_hit_list(rays, *geom, full_counts, full_lists,
-                                       t_min, rows=rows, active=ones)
-    res = against_closest_hit(torch, got, want, ones)
-    require_bit_equal(res, "closest_hit_list on full lists")
-    require(res["active"] == lanes and int(got[0].sum()) > lanes // 4,
-            "the synthetic rays must hit")
-    out["synthetic_full_lists"] = res
+    for k in seg.CH_SPLITS:
+        got = seg.segment_closest_hit_list(rays, *geom, full_counts,
+                                           full_lists, t_min, rows=rows,
+                                           active=ones, split=k)
+        res = against_closest_hit(torch, got, want, ones)
+        require_bit_equal(res, f"closest_hit_list on full lists, K = {k}")
+        require(res["active"] == lanes and int(got[0].sum()) > lanes // 4,
+                "the synthetic rays must hit")
+        out[f"synthetic_full_lists_K{k}"] = res
     # a 40-sphere sublist is the 40-sphere sub-scene
     sub = torch.cat([torch.zeros(1, dtype=torch.int64), 1 + torch.randperm(
         n_sph - 1, generator=gen)[:39]]).sort().values.to(dev)
     sub_lists = torch.full((nb, l_len), n_sph, dtype=torch.int32, device=dev)
     sub_lists[:, :40] = sub.to(torch.int32)[None, :]
     sub_counts = torch.full((nb,), 40, dtype=torch.int32, device=dev)
-    got = seg.segment_closest_hit_list(rays, *geom, sub_counts, sub_lists,
-                                       t_min, rows=rows, active=ones)
     h_s, t_s, sb_s = seg.segment_closest_hit(
         rays, *(g[sub].contiguous() for g in geom), t_min, active=ones)
     mapped = torch.where(h_s > 0, sub[sb_s.to(torch.int64)].to(torch.int32),
                          torch.zeros_like(sb_s))
-    res = against_closest_hit(torch, got, (h_s, t_s, mapped), ones)
-    require_bit_equal(res, "closest_hit_list on a 40-sphere sublist")
-    out["synthetic_sublist_40"] = res
+    for k in seg.CH_SPLITS:
+        got = seg.segment_closest_hit_list(rays, *geom, sub_counts,
+                                           sub_lists, t_min, rows=rows,
+                                           active=ones, split=k)
+        res = against_closest_hit(torch, got, (h_s, t_s, mapped), ones)
+        require_bit_equal(res, f"closest_hit_list on a 40-sphere sublist, "
+                          f"K = {k}")
+        out[f"synthetic_sublist_40_K{k}"] = res
     # empty lists (blocks 0, 1) and all-inactive blocks (2, 3)
     counts = full_counts.clone()
     counts[:2] = 0
     act = ones.clone()
     act[2 * rows:] = 0
-    hk, tk, sk = seg.segment_closest_hit_list(rays, *geom, counts, full_lists,
-                                              t_min, rows=rows, active=act)
-    torch.cuda.synchronize()
-    require(bool(((hk == 0) & (tk == 1e30) & (sk == 0)).all()),
-            "an empty list or an inactive block must give (0, 1e30, 0)")
+    for k in seg.CH_SPLITS:
+        hk, tk, sk = seg.segment_closest_hit_list(
+            rays, *geom, counts, full_lists, t_min, rows=rows, active=act,
+            split=k)
+        torch.cuda.synchronize()
+        require(bool(((hk == 0) & (tk == 1e30) & (sk == 0)).all()),
+                f"an empty list or an inactive block must give (0, 1e30, 0) "
+                f"(K = {k})")
     out["synthetic_empty_and_inactive"] = {"ok": True, "lanes": lanes}
+    # ties_and_grazes with lists whose order runs against the ids: the
+    # earliest list position wins a tie
+    t_rays, t_geom, t_tmin, _ = chk.ties_and_grazes(dev)
+    t_counts, t_lists, t_act = chk.ties_and_grazes_lists(dev)
+    res = list_sweep(torch, t_rays, t_geom, t_counts, t_lists, t_tmin, 2,
+                     t_act, seg.hit_table_padded(*t_geom),
+                     "closest_hit_list on ties_and_grazes")
+    sb0 = seg.segment_closest_hit_list_reference(
+        t_rays, *t_geom, t_counts, t_lists, t_tmin, 2, t_act)[2].reshape(
+            4, -1)[0].cpu()
+    kind = torch.arange(sb0.numel()) % 11
+    on = (kind < 9) & (t_act.reshape(4, -1)[0].cpu() > 0)
+    later = torch.tensor([p[1] for p in chk.TIE_PAIRS], dtype=torch.int32)
+    require(bool((sb0[on] == later[kind[on]]).all()),
+            "closest_hit_list's plain version must keep the earliest list "
+            "position on ties_and_grazes")
+    out["ties_and_grazes_lists"] = {k: v for k, v in res.items()
+                                    if k != "picked"}
     return out
 
 
@@ -1466,7 +1558,10 @@ def sorted_kernel_checks(rt, torch, shape):
 
 def mxu_kernel_checks(rt, torch, shape):
     """closest_hit_mxu: the single pool's mid-frame state at two pool sizes
-    and closest_hit's synthetic cases."""
+    (at every K, its K sweep), closest_hit's synthetic cases and
+    ``ties_and_grazes`` with its own table at every K."""
+    from raytracinginoneweekend_tpu_torch.closest_hit_checks import (
+        disc_pairs)
     from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
 
     out = {}
@@ -1505,17 +1600,27 @@ def mxu_kernel_checks(rt, torch, shape):
                 <= 1e-3 * max(vs["active"], 1)
                 and vs["miss_sb_nonzero"] == 0,
                 f"closest_hit_mxu against closest_hit (pool {pool}): {vs}")
+        nbytes = lane_bytes(eng.lanes, res["active"]) + n_sph * 16
+        n_ge, n_pairs = disc_pairs(rays, *geom, act, regrouped=True)
         res.update(lanes=eng.lanes, spheres=n_sph,
                    **times(lambda: kernel(rays, act),
                            lambda: plain(rays, act)),
                    **bound(res["active"] * n_sph * MX_FLOPS_PER_SPHERE,
-                           lane_bytes(eng.lanes, res["active"])
-                           + n_sph * 16))
+                           nbytes),
+                   **needed_bound(n_pairs, n_ge, nbytes / PEAK_BYTES_PER_S),
+                   k_sweep=k_sweep(
+                       torch, "closest_hit_mxu",
+                       lambda k: seg.segment_closest_hit_mxu(
+                           rays, *geom, eng.t_min, active=act, table=table,
+                           split=k),
+                       plain(rays, act), eng.lanes, seg.MXU_THREADS_PER_SM))
         out[f"pool_{pool}"] = res
         if pool == 1 << 15:
             out["synthetic"] = synthetic_closest_hit(
                 torch, geom, eng.t_min, eng.lanes, kernel=kernel,
                 plain=plain, what="closest_hit_mxu")
+            out["ties_and_grazes"] = synthetic_ties_and_grazes(
+                torch, act.device, "closest_hit_mxu")
     return out
 
 
@@ -1542,13 +1647,24 @@ def coherent_kernel_lines(lst, srt, mxu):
     l_main, l_def = (lst[f"pool_{p}"] for p in (DUAL_POOL,
                                                 DUAL_POOL_DEFAULT))
     s_main = srt[f"pool_{1 << 15}_tile"][lad]
+    m_main, m_big = (mxu[f"pool_{p}"] for p in (1 << 15, 1 << 20))
     list_keys = keys + ("mean_list", "candidates_per_active_lane",
-                        "closest_hit_ms_same_rays")
+                        "closest_hit_ms_same_rays", *CH_NEEDED, "k_sweep")
+
+    def split_keys(main):
+        return {"split": main["k_sweep"]["picked"],
+                "k_sweep_ms": {k: v["ms"] for k, v in
+                               main["k_sweep"].items() if k != "picked"},
+                **{k: main[k] for k in CH_NEEDED}}
+
     sort_keys = keys + ("share_skipped", "share_skippable_lane_by_lane",
                         "closest_hit_ms_same_rays", *CH_NEEDED, "k_sweep")
     return [
         entry("closest_hit_list", "132", l_main,
-              **{k: l_main[k] for k in list_keys[-3:]},
+              **{k: l_main[k] for k in ("mean_list",
+                                        "candidates_per_active_lane",
+                                        "closest_hit_ms_same_rays")},
+              **split_keys(l_main),
               at_default_pool={k: l_def[k] for k in list_keys}),
         entry("closest_hit_sorted", "247", s_main,
               ownership="tile", ladder=list(SORTED_LADDER),
@@ -1567,8 +1683,9 @@ def coherent_kernel_lines(lst, srt, mxu):
                   k: srt[f"pool_{p}_{own}"][lad][k] for k in sort_keys}
                  for p in (1 << 15, 1 << 20) for own in ("strided", "tile")
                  if (p, own) != (1 << 15, "tile")}),
-        entry("closest_hit_mxu", "555", mxu[f"pool_{1 << 15}"],
-              at_pool_1m={k: mxu[f"pool_{1 << 20}"][k] for k in keys}),
+        entry("closest_hit_mxu", "555", m_main, **split_keys(m_main),
+              at_pool_1m={k: m_big[k] for k in (*keys, *CH_NEEDED,
+                                                 "k_sweep")}),
     ]
 
 
@@ -3731,8 +3848,9 @@ MEAN_TOL = 1e-3
 
 def split_loop_sass(lib: str, kernel: str, loop_only: bool) -> dict:
     """Facts of a split-loop kernel (closest_hit_kernel,
-    closest_hit_sorted_kernel or mega_bounce_kernel), read from its built
-    library with cuobjdump: for each K, registers, stack and local memory
+    closest_hit_sorted_kernel, mega_bounce_kernel, closest_hit_mxu_kernel
+    or closest_hit_list_kernel), read from its built library with
+    cuobjdump: for each K, registers, stack and local memory
     (-res-usage; a spill would show as local memory), and from the SASS
     its instruction count, its CALLs, the sqrt slow-path calls among them
     (a CALL within 8 instructions after a MUFU.RSQ: the IEEE sqrtf leaves
@@ -3746,7 +3864,9 @@ def split_loop_sass(lib: str, kernel: str, loop_only: bool) -> dict:
     load (LDS.128: the loop reads the sphere table as float4s) to the last
     branch back to one of them (the loop's back edge), which leaves out
     the sorted kernel's exit terms (1 / sqrt(a) and |o - oc|, before the
-    loop) and the whole-bounce kernel's shade (after it)."""
+    loop), the whole-bounce kernel's shade (after it) and the mxu kernel's
+    true division t = q / a, whose slow-path routine holds a MUFU.RSQ of
+    a NaN constant."""
     import re
     from raytracinginoneweekend_tpu_torch import kernels
 
@@ -3907,18 +4027,22 @@ def main(argv=None) -> int:
     for name in kernels.ENTRIES:
         kernels.entry(name)
     try:
-        sass = {name: split_loop_sass(libs[f"{name}.cu"], f"{name}_kernel",
-                                      loop_only=name != "closest_hit")
+        sass = {name: split_loop_sass(
+                    libs[f"{name}.cu"], f"{name}_kernel",
+                    loop_only=name != "closest_hit")
                 for name in ("closest_hit", "closest_hit_sorted",
-                             "mega_bounce")}
+                             "mega_bounce", "closest_hit_mxu",
+                             "closest_hit_list")}
         emit({"phase": "closest_hit_build", "kernels": sass["closest_hit"],
-              "closest_hit_sorted": sass["closest_hit_sorted"],
-              "mega_bounce": sass["mega_bounce"]})
+              **{name: facts for name, facts in sass.items()
+                 if name != "closest_hit"}})
         for name, facts in sass.items():
             require(all(v["sqrt_only_where_disc_ge_0"]
                         for v in facts.values()),
                     f"{name}_kernel takes a sqrt in its sphere loop that a "
                     f"negative discriminant can reach: {facts}")
+            require(all(v["local_bytes"] == 0 for v in facts.values()),
+                    f"{name}_kernel spills to local memory: {facts}")
         emit({"phase": "shade_regen_build",
               "kernels": shade_regen_sass(libs["shade_regen.cu"])})
     except Failed as e:

@@ -1,18 +1,24 @@
 """Check cases, counts and plain emulations for the split-loop closest-hit
-kernels (``csrc/closest_hit.cu``, ``csrc/closest_hit_sorted.cu`` and the
-loop of ``csrc/mega_bounce.cu``).
+kernels (``csrc/closest_hit.cu``, ``csrc/closest_hit_sorted.cu``,
+``csrc/closest_hit_mxu.cu``, ``csrc/closest_hit_list.cu`` and the loop of
+``csrc/mega_bounce.cu``).
 
 ``chip_smoke.py`` holds the kernels against them on the card and
-``tests/test_torch_closest_hit_split.py`` / ``tests/test_torch_sorted_
-split.py`` on the CPU:
+``tests/test_torch_closest_hit_split.py``, ``tests/test_torch_sorted_
+split.py`` and ``tests/test_torch_mxu_list_split.py`` on the CPU:
   * ``ties_and_grazes``: a small sphere table of its own whose answers are
     exact in float32 -- duplicate spheres split across the kernel's K-way
-    partitions, an exact graze, a ray that misses everything;
+    partitions, an exact graze, a ray that misses everything -- and
+    ``ties_and_grazes_lists``, cull lists for it whose order runs against
+    the ids;
   * ``bit_diff``: where two (hit, t, sb) results differ at all;
   * ``disc_pairs``: how many (lane, sphere) pairs of an input reach the
-    kernel's square root (discriminant >= 0). The rest stop after the
-    discriminant and its compare, so the count gives the work that input
-    needs, from which ``chip_smoke.py`` states a second bound;
+    kernel's square root (discriminant >= 0; ``regrouped`` for the mxu
+    kernel's arithmetic). The rest stop after the discriminant and its
+    compare, so the count gives the work that input needs, from which
+    ``chip_smoke.py`` states a second bound;
+  * ``mxu_guarded``: the mxu kernel's regrouped candidate with the square
+    root only where its discriminant is >= 0 (``rtw_mxu_guarded``);
   * ``split_min``: the K-way partition of a ray's scan and the warp
     shuffles' lexicographic reduce, in numpy, over any tie key (the
     sphere index of closest_hit and mega_bounce, the position in the
@@ -20,7 +26,10 @@ split.py`` on the CPU:
   * ``sorted_split``: closest_hit_sorted as a whole -- its exit terms, the
     stage vote of every thread over a warp of 32 / K rays, the partition
     and the reduce over (q, position) -- in plain PyTorch and numpy, with
-    its count of skipped chunks.
+    its count of skipped chunks;
+  * ``list_split``: closest_hit_list as a whole -- the guarded candidate
+    over each cull block's list, the partition of list positions and the
+    reduce over (q, position), the winner mapped through the list.
 """
 
 from __future__ import annotations
@@ -94,6 +103,36 @@ def ties_and_grazes(device, rows: int = 8):
     return rays, geom, 0.008, expect
 
 
+def ties_and_grazes_lists(device, rows: int = 2):
+    """Cull lists for ``ties_and_grazes`` (its 1024 lanes as four cull
+    blocks of ``rows`` = 2 rows) -> (counts, lists, active) on ``device``:
+    block 0 lists every sphere in DESCENDING id order -- each tied pair's
+    later copy first, 1 to 32 positions before the earlier one -- with pad
+    entries (id S) among them and past its count; block 1 every sphere in
+    a random order; block 2 an empty list; block 3 no active lane. A few
+    lanes of blocks 0-2 are inactive too. The list kernel keeps the
+    earliest list POSITION on a tie, so block 0's tied rays get the later
+    id (``TIE_PAIRS[i][1]``)."""
+    s, nb = TIE_SPHERES, 4
+    g = np.random.default_rng(11)
+    width = s + 8
+    lists = np.full((nb, width), s, np.int32)
+    desc = list(range(s - 1, -1, -1))
+    for at in (0, 17, 50):
+        desc.insert(at, s)
+    lists[0, :len(desc)] = desc
+    lists[1, :s] = g.permutation(s)
+    lists[2] = g.permutation(width).clip(max=s)
+    lists[3] = lists[1]
+    counts = np.array([len(desc) + 2, s, 0, s], np.int32)
+    active = np.ones((nb, rows * 128), np.int32)
+    active[3] = 0
+    active[:3, 5::37] = 0
+    return (torch.from_numpy(counts).to(device),
+            torch.from_numpy(lists).to(device),
+            torch.from_numpy(active.reshape(nb * rows, 128)).to(device))
+
+
 def bit_diff(got, want) -> dict:
     """Lanes where two (hit, t, sb) results differ at all: the hit flag,
     the sphere index, the bits of t (every lane, inactive ones too)."""
@@ -104,13 +143,14 @@ def bit_diff(got, want) -> dict:
                                   != tr.view(torch.int32)).sum())}
 
 
-def disc_pairs(rays, cx, cy, cz, r, active=None,
-               chunk: int = 1 << 15) -> tuple[int, int]:
+def disc_pairs(rays, cx, cy, cz, r, active=None, chunk: int = 1 << 15,
+               regrouped: bool = False) -> tuple[int, int]:
     """-> (pairs whose discriminant b*b - a*c is >= 0, all pairs) over the
     active lanes and every sphere, with the kernel's float32 arithmetic
-    (rtw_closest_guarded in csrc/rtw_common.cuh; a NaN discriminant counts
-    as < 0, as the guard treats it). Works in slabs of ``chunk`` lanes so
-    the (lanes, spheres) intermediates stay bounded."""
+    (rtw_closest_guarded in csrc/rtw_common.cuh, or with ``regrouped`` the
+    mxu kernel's rtw_mxu_guarded; a NaN discriminant counts as < 0, as the
+    guard treats it). Works in slabs of ``chunk`` lanes so the (lanes,
+    spheres) intermediates stay bounded."""
     planes = [p.reshape(-1, 1) for p in rays]
     if active is not None:
         act = active if active.dtype == torch.bool else active > 0
@@ -119,16 +159,66 @@ def disc_pairs(rays, cx, cy, cz, r, active=None,
     ox, oy, oz, dx, dy, dz = planes
     rr = (r * r)[None, :]
     cx, cy, cz = cx[None, :], cy[None, :], cz[None, :]
+    ccr = cx * cx + cy * cy + cz * cz - rr
     n_ge = 0
     for lo in range(0, ox.shape[0], chunk):
         sl = slice(lo, lo + chunk)
+        x, y, z = ox[sl], oy[sl], oz[sl]
         vx, vy, vz = dx[sl], dy[sl], dz[sl]
         a = vx * vx + vy * vy + vz * vz
-        ocx, ocy, ocz = ox[sl] - cx, oy[sl] - cy, oz[sl] - cz
-        b = ocx * vx + ocy * vy + ocz * vz
-        c = ocx * ocx + ocy * ocy + ocz * ocz - rr
-        n_ge += int((b * b - a * c >= 0).sum())
+        if regrouped:
+            disc = _mxu_disc(x, y, z, vx, vy, vz, a, cx, cy, cz, ccr)[0]
+        else:
+            ocx, ocy, ocz = x - cx, y - cy, z - cz
+            b = ocx * vx + ocy * vy + ocz * vz
+            c = ocx * ocx + ocy * ocy + ocz * ocz - rr
+            disc = b * b - a * c
+        n_ge += int((disc >= 0).sum())
     return n_ge, ox.shape[0] * rr.shape[1]
+
+
+def _mxu_disc(x, y, z, vx, vy, vz, a, cx, cy, cz, ccr):
+    """The mxu kernel's regrouped -b and discriminant, broadcast over
+    (rays, spheres), in rtw_mxu_guarded's operation order -> (disc,
+    -b)."""
+    d_o = vx * x + vy * y + vz * z
+    o_o = x * x + y * y + z * z
+    d_c = vx * cx + vy * cy + vz * cz
+    o_c = x * cx + y * cy + z * cz
+    bneg = d_c - d_o
+    c = (o_o - (o_c + o_c)) + ccr
+    return bneg * bneg - a * c, bneg
+
+
+def mxu_guarded(x, y, z, vx, vy, vz, a, q_min, cx, cy, cz, ccr):
+    """rtw_mxu_guarded's candidate (csrc/rtw_common.cuh) broadcast over
+    (rays, spheres): the regrouped -b = d.C - d.o and c = (|o|^2 - 2 o.C) +
+    (|C|^2 - r^2) (``ccr``, the mxu table's fourth column), then the roots
+    and the window only where the discriminant is >= 0, RTW_BIG
+    elsewhere."""
+    disc, bneg = _mxu_disc(x, y, z, vx, vy, vz, a, cx, cy, cz, ccr)
+    pos = disc >= 0
+    sq = torch.sqrt(torch.where(pos, disc, torch.ones_like(disc)))
+    q0, q1 = bneg - sq, bneg + sq
+    big = torch.full_like(q0, float(BIG))
+    q = torch.where(q0 > q_min, q0, torch.where(q1 > q_min, q1, big))
+    return torch.where(pos, q, big)
+
+
+def guarded(x, y, z, vx, vy, vz, a, q_min, cx, cy, cz, rr):
+    """rtw_closest_guarded's candidate (csrc/rtw_common.cuh) broadcast over
+    (rays, spheres): kernel 1's arithmetic, the roots and the window only
+    where the discriminant is >= 0, RTW_BIG elsewhere."""
+    ocx, ocy, ocz = x - cx, y - cy, z - cz
+    b = ocx * vx + ocy * vy + ocz * vz
+    c = ocx * ocx + ocy * ocy + ocz * ocz - rr
+    disc = b * b - a * c
+    pos = disc >= 0
+    sq = torch.sqrt(torch.where(pos, disc, torch.ones_like(disc)))
+    q0, q1 = -b - sq, -b + sq
+    big = torch.full_like(q0, float(BIG))
+    q = torch.where(q0 > q_min, q0, torch.where(q1 > q_min, q1, big))
+    return torch.where(pos, q, big)
 
 
 def split_min(q: np.ndarray, k: int, key=None, thread=None):
@@ -243,3 +333,46 @@ def sorted_split(rays, cx, cy, cz, r, sortstate, t_min, rows: int, active,
     counted = warp_active
     return (hit, t.reshape(shape), sb), (
         int(skipped[counted].sum()), int(counted.sum()) * n_chunks)
+
+
+def list_split(rays, cx, cy, cz, r, counts, lists, t_min, rows: int,
+               active, k: int):
+    """closest_hit_list at K threads a ray, in plain PyTorch (float32, the
+    kernel's operation order) and numpy -> (hit, t, sb) planes.
+
+    Per cull block b (``rows`` x 128 lanes) the guarded candidate over the
+    padded table's rows ``lists[b, :counts[b]]`` (ids clamped to the table,
+    as the kernel's gather clamps them) in list order; list position p goes
+    to thread p % K, and ``split_min`` reduces over (q, position); the
+    winning position maps through the list. Lanes that are inactive, or
+    whose block's list is empty, get (0, 1e30, 0)."""
+    from .ops import cuda_segment as seg
+
+    nb, width = lists.shape
+    bl = rows * seg.LANES
+    n_sph = cx.shape[0]
+    table = seg.hit_table_padded(cx, cy, cz, r)
+    ids = lists.to(torch.int64).clamp(0, n_sph)
+    n = counts.to(torch.int64).clamp(0, width)
+    act = (active if active.dtype == torch.bool else active > 0).reshape(
+        nb, bl)
+    ox, oy, oz, dx, dy, dz = (p.reshape(nb, bl, 1) for p in rays)
+    a = dx * dx + dy * dy + dz * dz
+    inv_a = 1.0 / a[..., 0]
+    q_min = torch.tensor(t_min, dtype=torch.float32) * a
+    cand = table[ids][:, None]                               # (B, 1, L, 4)
+    q = guarded(ox, oy, oz, dx, dy, dz, a, q_min,
+                *(cand[..., c] for c in range(4)))           # (B, bl, L)
+    past = torch.arange(width)[None, :] >= n[:, None]
+    q = torch.where(past[:, None, :] | ~act[..., None],
+                    torch.full_like(q, float(BIG)), q)
+    q_b, pos = split_min(q.reshape(-1, width).numpy(), k)
+    q_b = torch.from_numpy(q_b).reshape(nb, bl)
+    pos = torch.from_numpy(pos).reshape(nb, bl)
+    h = act & (q_b < float(BIG))
+    won = (torch.gather(ids, 1, pos) if width else pos).to(torch.int32)
+    shape = rays[0].shape
+    return (h.to(torch.int32).reshape(shape),
+            torch.where(h, q_b * inv_a,
+                        torch.full_like(q_b, float(BIG))).reshape(shape),
+            torch.where(h, won, torch.zeros_like(won)).reshape(shape))

@@ -33,7 +33,7 @@
 //     (RTW_BIG, 0), so a ray that misses everything gets sb 0.
 //   * rtw_closest_guarded (rtw_common.cuh) takes the square root and the
 //     two roots only where the discriminant is >= 0 and leaves the running
-//     min alone elsewhere; bit-equal with rtw_candidate's unguarded form.
+//     min alone elsewhere; bit-equal with the unguarded form.
 //   * The sphere table (cx, cy, cz, r*r as one float4 per sphere, about
 //     8 KB at S = 489) is staged in shared memory once per block of 256
 //     threads -- the counterpart of the TPU kernel's scalar prefetch.

@@ -34,7 +34,7 @@
 // were skipped. No ladder = no checks.
 //
 // Candidate arithmetic is closest_hit's (rtw_closest_guarded, bit-equal
-// with rtw_candidate); the running min keeps the earliest sphere in the
+// with the unguarded form); the running min keeps the earliest sphere in the
 // SORTED order on exact q ties -- the one observable difference from
 // closest_hit. t = q_best * (1 / a) does not depend on any of the exit
 // terms.

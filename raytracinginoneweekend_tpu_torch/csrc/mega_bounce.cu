@@ -28,7 +28,7 @@
 // aimed at half its threads an SM: cuda_segment.SPLIT_THREADS_PER_SM):
 // thread j of the group scans spheres j, j + K, ... with
 // rtw_closest_guarded (the sqrt only where the discriminant is >= 0,
-// bit-equal with rtw_candidate) and keeps its own partial (q, s); the
+// bit-equal with the unguarded form) and keeps its own partial (q, s); the
 // group reduces the K partials with __shfl_xor_sync lexicographically
 // over (q, sphere index), which is the ascending strict-`<` running min
 // (the earliest sphere wins ties, as the TPU kernel's 8-way tournament

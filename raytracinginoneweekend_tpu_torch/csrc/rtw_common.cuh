@@ -48,41 +48,22 @@ __device__ __forceinline__ float rtw_min(float a, float b) {
 
 // ---- ops/cuda_segment.py: the closest-hit candidate --------------------
 
-// One sphere's candidate for one ray, in q-space (q = t * |d|^2): the
-// arithmetic of closest_hit_list's loop, which rtw_closest_guarded (the
-// loop of closest_hit, closest_hit_sorted and mega_bounce) repeats to the
-// bit (plain version: cuda_segment._candidates).
-// (x, y, z) origin, (vx, vy, vz) direction, a = |d|^2, q_min = t_min * a,
-// c4 = (cx, cy, cz, r*r). sqrtf of a negative discriminant is NaN and every
-// comparison with NaN is false, so a miss falls through to RTW_BIG; a pad
+// One sphere's candidate for one ray, in q-space (q = t * |d|^2), folded
+// into the strict-`<` running min (q_b, s_b) of sphere s (an index: a
+// sphere id, or a position in closest_hit_sorted's perm order or in
+// closest_hit_list's list): the loop of closest_hit, closest_hit_list,
+// closest_hit_sorted and mega_bounce. (x, y, z) origin, (vx, vy, vz)
+// direction, a = |d|^2, q_min = t_min * a, c4 = (cx, cy, cz, r*r); a pad
 // sphere (r*r = -1) can never give a candidate.
-__device__ __forceinline__ float rtw_candidate(float x, float y, float z,
-                                               float vx, float vy, float vz,
-                                               float a, float q_min,
-                                               float4 c4) {
-    const float ocx = x - c4.x;
-    const float ocy = y - c4.y;
-    const float ocz = z - c4.z;
-    const float b = ocx * vx + ocy * vy + ocz * vz;
-    const float c = ocx * ocx + ocy * ocy + ocz * ocz - c4.w;
-    const float sq = sqrtf(b * b - a * c);  // NaN when disc < 0
-    const float nb = -b;
-    const float q0 = nb - sq;
-    const float q1 = nb + sq;
-    return (q0 > q_min) ? q0 : ((q1 > q_min) ? q1 : RTW_BIG);
-}
-
-// rtw_candidate folded into the strict-`<` running min (q_b, s_b) of
-// sphere s (an index: a sphere id, or a position in closest_hit_sorted's
-// perm order), with the square root taken only where disc = b*b - a*c >=
-// 0 (the loop of closest_hit, closest_hit_sorted and mega_bounce;
-// closest_hit_list keeps rtw_candidate). Bit-equal with
-// `q = rtw_candidate(...); if (q < q_b) { q_b = q; s_b = s; }`: where
-// disc >= 0 (an exact graze, disc == 0 or -0, included, as in the TPU
-// kernel) it does the same operations in the same order; where disc < 0
-// or is NaN, rtw_candidate's sqrtf is NaN, both roots are NaN, every
-// comparison is false and it returns RTW_BIG, which can never pass a
-// strict `<` against q_b <= RTW_BIG -- so skipping the update is exact.
+// The contract is the UNGUARDED form of the plain version
+// (cuda_segment._candidates): sqrt(b*b - a*c) on every pair, NaN where
+// the discriminant is negative, every comparison with NaN false, so a
+// miss falls through to RTW_BIG. This form takes the square root only
+// where disc >= 0 and is bit-equal with it: where disc >= 0 (an exact
+// graze, disc == 0 or -0, included, as in the TPU kernel) it does the same
+// operations in the same order; where disc < 0 or is NaN the unguarded
+// roots are NaN, the window yields RTW_BIG, which can never pass a strict
+// `<` against q_b <= RTW_BIG -- so skipping the update is exact.
 // What it saves: an IEEE sqrtf (-fmad=false, no fast math) of a negative
 // argument leaves MUFU.RSQ's fast path for a slow-path subroutine, and
 // most sphere tests miss.
@@ -100,6 +81,39 @@ __device__ __forceinline__ void rtw_closest_guarded(
         const float nb = -b;
         const float q0 = nb - sq;
         const float q1 = nb + sq;
+        const float q = (q0 > q_min) ? q0 : ((q1 > q_min) ? q1 : RTW_BIG);
+        if (q < q_b) {
+            q_b = q;
+            s_b = s;
+        }
+    }
+}
+
+// The regrouped candidate of closest_hit_mxu folded into the strict-`<`
+// running min (q_b, s_b) of sphere s, with the square root taken only
+// where disc = bneg*bneg - a*c >= 0 (plain version:
+// cuda_segment.segment_closest_hit_mxu_reference). The per-ray scalars are
+// a = |d|^2, d_o = d.o, o_o = |o|^2 and q_min = t_min * a; c4 = (cx, cy,
+// cz, |C|^2 - r^2). Per sphere
+//     -b = d.C - d.o,   c = (|o|^2 - 2 o.C) + (|C|^2 - r^2)
+// in this fixed order, then the roots, the window and the min. Bit-equal
+// with the unguarded form (sqrtf(disc) on every pair, NaN below 0) by
+// rtw_closest_guarded's argument: where disc >= 0 the same operations in
+// the same order; where disc < 0 or is NaN the unguarded roots are NaN,
+// the window yields RTW_BIG, and RTW_BIG never passes the strict `<`.
+__device__ __forceinline__ void rtw_mxu_guarded(
+        float x, float y, float z, float vx, float vy, float vz, float a,
+        float d_o, float o_o, float q_min, float4 c4, int s, float& q_b,
+        int& s_b) {
+    const float dC = vx * c4.x + vy * c4.y + vz * c4.z;
+    const float oC = x * c4.x + y * c4.y + z * c4.z;
+    const float bneg = dC - d_o;                 // -b = d.C - d.o
+    const float c = (o_o - (oC + oC)) + c4.w;
+    const float disc = bneg * bneg - a * c;
+    if (disc >= 0.0f) {
+        const float sq = sqrtf(disc);
+        const float q0 = bneg - sq;
+        const float q1 = bneg + sq;
         const float q = (q0 > q_min) ? q0 : ((q1 > q_min) ? q1 : RTW_BIG);
         if (q < q_b) {
             q_b = q;

@@ -61,10 +61,10 @@ ENTRIES = {
     "rtw_closest_hit_n3": ("intersect.cu",
                            [_P] * 2 + [_P] + [_P] * 3 + [_I, _I, _F, _P]),
     # counts lists | act ox oy oz dx dy dz | table4 (S+1) | hit t sb
-    # | n_lanes n_spheres block_lanes list_len t_min | stream
+    # | n_lanes n_spheres block_lanes list_len t_min split | stream
     "rtw_closest_hit_list": ("closest_hit_list.cu",
                              [_P] * 2 + [_P] * 7 + [_P] + [_P] * 3
-                             + [_I, _I, _I, _I, _F, _P]),
+                             + [_I, _I, _I, _I, _F, _I, _P]),
     # ladder (host ints) n_ladder | perm suf oc yb | act ox oy oz dx dy dz
     # | table4 (S+1) | hit t sb | stats | n_lanes n_spheres block_lanes
     # n_chunks t_min split | stream
@@ -73,9 +73,10 @@ ENTRIES = {
                                + [_P] * 3 + [_P]
                                + [_I, _I, _I, _I, _F, _I, _P]),
     # act ox oy oz dx dy dz | table4 (cx cy cz ccr) | hit t sb
-    # | n_lanes n_spheres t_min | stream
+    # | n_lanes n_spheres t_min split | stream
     "rtw_closest_hit_mxu": ("closest_hit_mxu.cu",
-                            [_P] * 7 + [_P] + [_P] * 3 + [_I, _I, _F, _P]),
+                            [_P] * 7 + [_P] + [_P] * 3
+                            + [_I, _I, _F, _I, _P]),
     # state in ptrs (16) | state out ptrs (14) | table4 table10 | n_lanes
     # n_spheres t_min max_depth unit_sample phys_refract sky_bias split
     # | stream

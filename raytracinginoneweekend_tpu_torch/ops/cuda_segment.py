@@ -28,9 +28,11 @@ KERNEL NOTES, the four siblings (each source's header has the detail):
   * ``segment_closest_hit_list`` launches ``csrc/closest_hit_list.cu``
     (replaces ``pallas_segment.py::_kernel_list``): the loop runs over a
     per-cull-block candidate list from ops/cull.py, gathered into shared
-    memory once per thread block. Bound by bytes at the list lengths of a
-    coherent block. Bit-identical with ``segment_closest_hit`` wherever
-    the list holds the true winner.
+    memory once per thread block; kernel 1's split loop (K threads a ray
+    from ``closest_hit_split`` with ``LIST_THREADS_PER_SM``, reduced over
+    (q, position in the list)) and guarded square root. Bound by bytes at
+    the list lengths of a coherent block. Bit-identical with
+    ``segment_closest_hit`` wherever the list holds the true winner.
   * ``segment_closest_hit_sorted`` launches ``csrc/closest_hit_sorted.cu``
     (replaces ``_kernel_sorted``): spheres in per-cull-block distance
     order, stages of the loop skipped when every ray of a warp provably
@@ -48,8 +50,10 @@ KERNEL NOTES, the four siblings (each source's header has the detail):
     float32 rounding. Bound by arithmetic when nothing is skipped.
   * ``segment_closest_hit_mxu`` launches ``csrc/closest_hit_mxu.cu``
     (replaces ``_kernel_mxu``): the regrouped dot products d.C and o.C in
-    the kernel's own body, in float32 in a fixed order. Bound by
-    arithmetic. Not bit-equal with ``segment_closest_hit``.
+    the kernel's own body, in float32 in a fixed order; kernel 1's split
+    loop (K from ``closest_hit_split`` with ``MXU_THREADS_PER_SM``, reduced
+    over (q, sphere index)) and guarded square root. Bound by arithmetic.
+    Not bit-equal with ``segment_closest_hit``.
 Each has its plain PyTorch version beside it (``..._reference``), which
 does the same float32 operations in the same order.
 
@@ -130,8 +134,9 @@ def _candidates(x, y, z, vx, vy, vz, a, q_min, cx, cy, cz, rr):
     """Every sphere's candidate for every ray in q-space (q = t*|d|^2),
     broadcast over (rays, spheres): the one copy of the arithmetic that
     the plain versions of closest_hit, closest_hit_list and
-    closest_hit_sorted share (csrc/rtw_common.cuh rtw_candidate, and
-    rtw_closest_guarded, closest_hit's bit-equal guarded form)."""
+    closest_hit_sorted share, unguarded (the kernels' loop,
+    csrc/rtw_common.cuh rtw_closest_guarded, is its bit-equal guarded
+    form)."""
     ocx = x - cx
     ocy = y - cy
     ocz = z - cz
@@ -293,6 +298,10 @@ CH_THREADS_PER_SM = 1024
 # spheres once a thread block, the whole-bounce kernel's shade holds 54
 # registers a thread (chip_smoke.py; PERF.md).
 SPLIT_THREADS_PER_SM = 512
+# The targets of closest_hit_mxu and closest_hit_list: whichever of the two
+# above each kernel's own K sweep found fastest (chip_smoke.py; PERF.md).
+MXU_THREADS_PER_SM = CH_THREADS_PER_SM
+LIST_THREADS_PER_SM = SPLIT_THREADS_PER_SM
 
 
 def closest_hit_split(n_lanes: int, n_sms: int,
@@ -318,8 +327,9 @@ def _sm_count(device_index: int) -> int:
 def picked_split(n_lanes: int, device_index: int,
                  threads_per_sm: int = CH_THREADS_PER_SM) -> int:
     """``closest_hit_split`` on this card, worked out once per lane count:
-    the K of closest_hit, or with ``SPLIT_THREADS_PER_SM`` of
-    closest_hit_sorted and mega_bounce."""
+    the K of closest_hit, or with another target (``SPLIT_THREADS_PER_SM``,
+    ``MXU_THREADS_PER_SM``, ``LIST_THREADS_PER_SM``) of the other
+    split-loop kernels."""
     return closest_hit_split(n_lanes, _sm_count(device_index),
                              threads_per_sm)
 
@@ -451,7 +461,8 @@ def segment_closest_hit_list_reference(rays, cx, cy, cz, r, counts, lists,
 
 
 def segment_closest_hit_list(rays, cx, cy, cz, r, counts, lists, t_min,
-                             rows: int = 128, active=None, table=None):
+                             rows: int = 128, active=None, table=None,
+                             split=None):
     """List-driven closest hit: cull block b tests only its candidates.
 
     counts: (B,) i32 candidates per cull block (B = R/rows; ops/cull.py
@@ -459,11 +470,14 @@ def segment_closest_hit_list(rays, cx, cy, cz, r, counts, lists, t_min,
     lists: (B, L) i32 sphere ids, ascending per block; entries past the
       true count must index the pad sphere (id S), which never wins.
     table: optional ``hit_table_padded(cx, cy, cz, r)``.
+    split: forces the kernel's K (one of ``CH_SPLITS``) in place of the
+      picker's (``LIST_THREADS_PER_SM``); for measuring, changes no result.
     Returns (hit_i, t, sphere_idx) exactly like segment_closest_hit, and
     bit-identical with it wherever the list holds the true winner. CUDA
     tensors go through the hand-written kernel; CPU tensors through the
     plain version.
     """
+    check_split("closest_hit_list", split)
     ox = rays[0]
     if ox.device.type == "cpu":
         return segment_closest_hit_list_reference(
@@ -483,12 +497,14 @@ def segment_closest_hit_list(rays, cx, cy, cz, r, counts, lists, t_min,
     if table is None:
         table = hit_table_padded(cx, cy, cz, r)
     _check_table(name, table, n_spheres + 1, device)
+    if split is None:
+        split = picked_split(ox.numel(), device.index, LIST_THREADS_PER_SM)
     hit, t, sb = _outputs(shape, device)
     fn = kernels.entry("rtw_closest_hit_list")
     err = fn(counts.data_ptr(), lists.data_ptr(), act.data_ptr(),
              *(p.data_ptr() for p in rays), table.data_ptr(),
              hit.data_ptr(), t.data_ptr(), sb.data_ptr(), ox.numel(),
-             n_spheres, rows * LANES, list_len, float(t_min),
+             n_spheres, rows * LANES, list_len, float(t_min), split,
              torch.cuda.current_stream(device).cuda_stream)
     kernels.check(err, name)
     kernels.LAUNCHES["closest_hit_list"] += 1
@@ -701,13 +717,17 @@ def segment_closest_hit_mxu_reference(rays, cx, cy, cz, r, t_min,
 
 
 def segment_closest_hit_mxu(rays, cx, cy, cz, r, t_min, active=None,
-                            table=None):
+                            table=None, split=None):
     """Regrouped-products closest hit; same contract as
     segment_closest_hit up to f32 rounding on knife-edge candidates
     (planes in, planes out; at most MXU_MAX_SPHERES spheres). table:
-    optional ``mxu_table(cx, cy, cz, r)``. CUDA tensors go through the
-    hand-written kernel; CPU tensors through the plain version.
+    optional ``mxu_table(cx, cy, cz, r)``. ``split`` forces the kernel's K
+    (one of ``CH_SPLITS``) in place of the picker's
+    (``MXU_THREADS_PER_SM``); for measuring, it changes no result. CUDA
+    tensors go through the hand-written kernel; CPU tensors through the
+    plain version.
     """
+    check_split("closest_hit_mxu", split)
     n_spheres = cx.shape[0]
     if n_spheres > MXU_MAX_SPHERES:
         raise ValueError(f"closest_hit_mxu: {n_spheres} spheres; at most "
@@ -722,11 +742,13 @@ def segment_closest_hit_mxu(rays, cx, cy, cz, r, t_min, active=None,
     if table is None:
         table = mxu_table(cx, cy, cz, r)
     _check_table(name, table, n_spheres, device)
+    if split is None:
+        split = picked_split(ox.numel(), device.index, MXU_THREADS_PER_SM)
     hit, t, sb = _outputs(shape, device)
     fn = kernels.entry("rtw_closest_hit_mxu")
     err = fn(act.data_ptr(), *(p.data_ptr() for p in rays),
              table.data_ptr(), hit.data_ptr(), t.data_ptr(), sb.data_ptr(),
-             ox.numel(), n_spheres, float(t_min),
+             ox.numel(), n_spheres, float(t_min), split,
              torch.cuda.current_stream(device).cuda_stream)
     kernels.check(err, name)
     kernels.LAUNCHES["closest_hit_mxu"] += 1

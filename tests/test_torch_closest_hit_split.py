@@ -11,7 +11,8 @@ hold what the CPU can reach, with no tolerance (every comparison is exact):
     index -- what the plain version returns -- for every K, on q arrays
     with ties planted across partitions, rows that miss everything and
     exact equalities;
-  * the guarded candidate equals the unguarded one bit for bit;
+  * the guarded candidate (``closest_hit_checks.guarded``) equals the
+    unguarded one bit for bit;
   * the picker ``closest_hit_split``;
   * the ``ties_and_grazes`` table (``closest_hit_checks``) through the
     port's plain ``segment_closest_hit`` against the JAX
@@ -104,21 +105,6 @@ def test_split_reduce_is_first_min(case, k):
         assert (s_b == 0).all()  # a ray that misses everything: sb 0
 
 
-def _guarded(x, y, z, vx, vy, vz, a, q_min, cx, cy, cz, rr):
-    """rtw_closest_guarded's candidate in plain PyTorch: the roots only
-    where disc >= 0, else 1e30."""
-    ocx, ocy, ocz = x - cx, y - cy, z - cz
-    b = ocx * vx + ocy * vy + ocz * vz
-    c = ocx * ocx + ocy * ocy + ocz * ocz - rr
-    disc = b * b - a * c
-    pos = disc >= 0
-    sq = torch.sqrt(torch.where(pos, disc, torch.ones_like(disc)))
-    q0, q1 = -b - sq, -b + sq
-    big = torch.full_like(q0, 1e30)
-    q = torch.where(q0 > q_min, q0, torch.where(q1 > q_min, q1, big))
-    return torch.where(pos, q, big)
-
-
 @pytest.mark.parametrize("scene", ["huge", "ties_and_grazes"])
 def test_guarded_candidate_is_bit_equal(scene):
     if scene == "huge":
@@ -140,7 +126,7 @@ def test_guarded_candidate_is_bit_equal(scene):
     args = (*o, *d, a, np.float32(0.008) * a, cx[None], cy[None], cz[None],
             (r * r)[None])
     want = pseg._candidates(*args)
-    got = _guarded(*args)
+    got = chk.guarded(*args)
     np.testing.assert_array_equal(got.numpy().view(np.int32),
                                   want.numpy().view(np.int32))
     if scene == "ties_and_grazes":  # the exact graze is a hit
