@@ -22,6 +22,10 @@ Phases (one JSON object per line on standard output):
                    sqrt of the sphere loop sits behind the disc >= 0 branch
                    (required). ptxas's own report (-Xptxas -v) goes to
                    standard error.
+  intersect_build  the same facts for each K of the two t-space split
+                   loops, intersect and closest_hit_grouped (K up to 16),
+                   and whether every sqrt of the sphere loop sits behind
+                   the disc > 0 branch (FSETP.GT; required).
   shade_regen_build  for each instantiation of kernel 2 (entry, lanes a
                    thread, camera-ray form), read from the built library:
                    registers, stack and spill bytes, local loads and stores.
@@ -49,9 +53,14 @@ Phases (one JSON object per line on standard output):
                    (1024, 128) ray planes, no active plane, at bounce 0
                    and after three bounces); intersect (the (N, 3) closest
                    hit) on
-                   synthetic edge cases and on the huge scene's real rays
-                   at bounce 0 and after three bounces, at the training
-                   path's two shapes (960000 and 131072 rays). The three
+                   synthetic edge cases (``tspace_ties_and_grazes``: exact
+                   tangents, planted ties across the split's partitions,
+                   roots on t_min, a hollow shell) and on the huge scene's
+                   real rays at bounce 0 and after three bounces, at the
+                   training path's two shapes (960000 and 131072 rays),
+                   at every K (1 ... 32) bit-equal with its plain version
+                   (every synthetic case too) and timed on the mid-path
+                   rays (its K sweep). The three
                    closest-hit siblings for coherent rays, each against its
                    plain version AND against closest_hit on the same rays:
                    closest_hit_list on the dual engine's primary pool in
@@ -135,13 +144,16 @@ Phases (one JSON object per line on standard output):
                    dual engine's frame is held against.
   grouped_path     the sphere-group kernel (closest_hit_grouped) on the
                    rays it was designed for: the camera rays of the full
-                   frame's first pool (2^20 lanes, tile ownership) and a
-                   mid-frame state of that frame, each through
+                   frame's first pool (2^20 lanes, tile ownership), a
+                   mid-frame state of that frame and the camera rays of
+                   the default pool (32768 lanes), each through
                    trace_segment(group_params=...) with the launch counts
-                   read around the two calls; against its plain version,
+                   read around the three calls; against its plain version,
                    against closest_hit on the unsorted scene, its own count
                    of the group-tests it skipped beside what a lane-by-lane
-                   cull could skip, and times beside closest_hit's.
+                   cull could skip, times beside closest_hit's, and at
+                   every K (1 ... 16) bit-equal with its plain version and
+                   timed (its K sweep, with the share skipped at each K).
   mega_path        the whole-bounce kernel (mega_bounce) against its plain
                    version on the main frame's mid-frame state (32768 and
                    2^20 lanes), at every K of its split loop bit-equal
@@ -156,7 +168,9 @@ Phases (one JSON object per line on standard output):
   train_path       the training path at full width -- huge scene, 1200x800
                    camera, thin lens, default options with
                    intersect="pallas": the target by render.render (tiled
-                   engine, the intersect kernel) at 8 spp, depth 16, then
+                   engine, the intersect kernel) at 8 spp, depth 16, with
+                   the intersect kernel's device time summed over its
+                   launches (CUDA events around each), then
                    optim.fit on albedo and centers, 16384 pixels x 8 spp
                    a step, depth 16, engine "auto" (-> planar: the
                    closest_hit kernel under autograd), one warm-up step
@@ -177,7 +191,7 @@ Then the ``kernels`` line (``launches`` from the main path's run for
 closest_hit, shade_regen and regen_only (once: the prologue), from the
 coherent path's full-width frames for closest_hit_list,
 closest_hit_sorted, closest_hit_mxu and shade_only, from the
-training path's for intersect, from the grouped path's two calls for
+training path's for intersect, from the grouped path's three calls for
 closest_hit_grouped and from the full-width --fusion bounce frame for
 mega_bounce, ``launches_train_path`` beside it, every other number
 measured in this run), the card's name and power limit as
@@ -231,10 +245,13 @@ Tolerances, and why:
   intersect     hit and sphere index equal on every ray, t within rtol
                 1e-6: kernel and plain version do the same IEEE float32
                 operations in the same order (ties keep the earliest
-                sphere in both).
+                sphere in both). In the K sweep and on every synthetic
+                case: bit-equal on every ray (hit, index, the bits of t) at
+                every K, by the reduce over (t, index).
   closest_hit_grouped
                 bit-equal with its plain version (the t-space loop over the
-                sorted table without the cull, which is conservative).
+                sorted table without the cull, which is conservative), at
+                every K (its reduce is over (t, sorted index)).
                 Against closest_hit on the unsorted scene the JAX package's
                 own terms (tests/test_pallas_intersect.py): the same hit on
                 every camera ray and on all but 1e-4 of the mid-frame lanes
@@ -348,6 +365,13 @@ CH_FLOPS_PER_SPHERE = 27
 CH_MISS_FLOPS = 18
 CH_NEEDED = ("bound_needed_ms", "issue_ceiling_ms", "pairs",
              "pairs_disc_ge_0")
+# The t-space kernels' guarded loop (intersect, closest_hit_grouped): the
+# same 18 operations up to the guard (disc > 0); past it the sqrt, negate,
+# 2 roots, 2 products with 1/a, 2 window compares + 2 selects, 1 compare +
+# 2 selects for the min.
+IX_HIT_FLOPS = 31
+IX_NEEDED = ("bound_needed_ms", "issue_ceiling_ms", "pairs",
+             "pairs_disc_gt_0")
 # shade_regen: float operations per lane (surface point and normal, shade,
 # sky, state update, camera ray): a generous count; the integer hashing is
 # not in the float peak's table and the bound is the bytes anyway.
@@ -998,10 +1022,15 @@ def kernels_phase(rt, torch, nvidia_smi: str):
          "ms": big["ms"], "call_ms": big["call_ms"],
          "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
          "bound_by": big["bound_by"], "library_ms": None,
+         **{k: big[k] for k in IX_NEEDED},
          "rays": big["rays"], "spheres": big["spheres"],
+         "split": big["k_sweep"]["picked"],
+         "k_sweep_ms": {k: v["ms"] for k, v in big["k_sweep"].items()
+                        if k != "picked"},
          "at_131072_rays": {k: small[k] for k in (
-             "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "rays",
-             "max_abs_err", "int_mismatch")}})
+             "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+             *IX_NEEDED, "rays", "max_abs_err", "int_mismatch",
+             "k_sweep")}})
     require(tuple(rt.DEFAULT.sorted_ladder) == SORTED_LADDER,
             "TraceOptions.sorted_ladder's default moved")
     lst = list_kernel_checks(rt, torch)
@@ -1165,16 +1194,22 @@ def sorted_lane_chunks(torch, rays, geom, t_min, act, sortstate, ladder,
     return chunks, n_ge
 
 
-def needed_bound(pairs: int, pairs_ge: int, t_bytes: float) -> dict:
-    """The bound from the work an input needs: CH_FLOPS_PER_SPHERE for
-    each (lane, sphere) pair whose discriminant is >= 0, CH_MISS_FLOPS
-    for the rest, against PEAK_F32_FLOPS -> bound_needed_ms; the same
-    operations at the float32 issue rate that -fmad=false leaves (one
-    instruction each: half the peak, which counts an FMA as two) ->
-    issue_ceiling_ms. Either is the larger of that time and ``t_bytes``."""
-    t_ops = (pairs_ge * CH_FLOPS_PER_SPHERE
-             + (pairs - pairs_ge) * CH_MISS_FLOPS) / PEAK_F32_FLOPS
-    return {"pairs": pairs, "pairs_disc_ge_0": pairs_ge,
+def needed_bound(pairs: int, pairs_ge: int, t_bytes: float,
+                 hit_flops: int = CH_FLOPS_PER_SPHERE, strict: bool = False,
+                 other_ops: int = 0) -> dict:
+    """The bound from the work an input needs: ``hit_flops``
+    (CH_FLOPS_PER_SPHERE; IX_HIT_FLOPS for the t-space kernels) for each
+    (lane, sphere) pair whose discriminant is >= 0 (> 0 with ``strict``,
+    the t-space guard), CH_MISS_FLOPS for the rest, plus ``other_ops``
+    (the grouped kernel's bound tests), against PEAK_F32_FLOPS ->
+    bound_needed_ms; the same operations at the float32 issue rate that
+    -fmad=false leaves (one instruction each: half the peak, which counts
+    an FMA as two) -> issue_ceiling_ms. Either is the larger of that time
+    and ``t_bytes``."""
+    t_ops = (pairs_ge * hit_flops + (pairs - pairs_ge) * CH_MISS_FLOPS
+             + other_ops) / PEAK_F32_FLOPS
+    return {"pairs": pairs,
+            "pairs_disc_gt_0" if strict else "pairs_disc_ge_0": pairs_ge,
             "bound_needed_ms": max(t_ops, t_bytes) * 1e3,
             "issue_ceiling_ms": max(2 * t_ops, t_bytes) * 1e3}
 
@@ -1693,13 +1728,16 @@ def coherent_kernel_lines(lst, srt, mxu):
 # kernels phase: intersect, the (N, 3) closest hit
 # --------------------------------------------------------------------- #
 
-def compare_intersect(torch, o, d, centers, radii, t_min):
-    """Kernel against plain version on one input -> dict of errors."""
+def compare_intersect(torch, o, d, centers, radii, t_min, split=None):
+    """Kernel (at K = ``split``, or the picked K) against plain version on
+    one input -> (dict of errors, the kernel's (t, idx, hit)); ``ok`` by
+    the stated tolerance, ``bit_equal`` on every ray (hit, idx, the bits
+    of t)."""
     from raytracinginoneweekend_tpu_torch.ops.cuda_intersect import (
         closest_hit_cuda)
     from raytracinginoneweekend_tpu_torch.ops.intersect import closest_hit
 
-    tk, ik, hk = closest_hit_cuda(o, d, centers, radii, t_min)
+    tk, ik, hk = closest_hit_cuda(o, d, centers, radii, t_min, split=split)
     tr, ir, hr = closest_hit(o, d, centers, radii, t_min)
     torch.cuda.synchronize()
     bad = (hk != hr) | (ik != ir)
@@ -1709,16 +1747,47 @@ def compare_intersect(torch, o, d, centers, radii, t_min):
     miss_ok = bool(((tk[~hk] == 1e30) & (ik[~hk] == 0)).all())
     res = {"rays": o.shape[0], "spheres": centers.shape[0],
            "hits": int(hk.sum()), "int_mismatch": int(bad.sum()),
+           "t_bits_differ": int((tk.view(torch.int32)
+                                 != tr.view(torch.int32)).sum()),
            "max_abs_err": float(dt.max()) if dt.numel() else 0.0,
            "max_rel_err": float(rel.max()) if rel.numel() else 0.0,
            "miss_convention_ok": miss_ok}
     res["ok"] = (miss_ok and res["int_mismatch"] == 0
                  and res["max_rel_err"] <= 1e-6)
+    res["bit_equal"] = res["int_mismatch"] == 0 and res["t_bits_differ"] == 0
     return res, (tk, ik, hk)
 
 
+def intersect_sweep(torch, o, d, centers, radii, t_min, what: str,
+                    timed: bool = True) -> dict:
+    """intersect at every K (``CH_SPLITS``) against its plain version on
+    one input, to the bit on every ray, with each K's device time ->
+    {"K<k>": {...}, "picked": the K the wrapper picks for these rays}."""
+    from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
+    from raytracinginoneweekend_tpu_torch.ops.cuda_intersect import (
+        closest_hit_cuda)
+
+    out = {}
+    for k in seg.CH_SPLITS:
+        res, _ = compare_intersect(torch, o, d, centers, radii, t_min,
+                                   split=k)
+        require(res["bit_equal"], f"intersect at K = {k} is not bit-equal "
+                f"with its plain version ({what}): {res}")
+        out[f"K{k}"] = {key: res[key] for key in ("int_mismatch",
+                                                  "t_bits_differ")}
+        if timed:
+            out[f"K{k}"]["ms"] = device_ms(functools.partial(
+                closest_hit_cuda, o, d, centers, radii, t_min, split=k))
+    out["picked"] = seg.picked_split(o.shape[0], o.device.index,
+                                     seg.IX_THREADS_PER_SM)
+    return out
+
+
 def synthetic_intersect(torch, scene, t_min):
-    """Edge cases for intersect -> {name: result}."""
+    """Edge cases for intersect, each at every K bit-equal with the plain
+    version -> {name: result}."""
+    from raytracinginoneweekend_tpu_torch import closest_hit_checks as chk
+
     dev = scene.centers.device
     gen = torch.Generator(device="cpu").manual_seed(11)
     n = 4096 + 77  # not a multiple of the block
@@ -1730,51 +1799,65 @@ def synthetic_intersect(torch, scene, t_min):
         v = torch.randn(k, 3, generator=gen, dtype=torch.float32)
         return v / v.norm(dim=1, keepdim=True)
 
-    def run(o, d, centers=scene.centers, radii=scene.radii, tm=t_min):
-        return compare_intersect(torch, o.contiguous().to(dev),
-                                 d.contiguous().to(dev), centers, radii, tm)
+    def run(name, o, d, centers=scene.centers, radii=scene.radii, tm=t_min):
+        o, d = o.contiguous().to(dev), d.contiguous().to(dev)
+        res, got = compare_intersect(torch, o, d, centers, radii, tm)
+        res["k_sweep"] = intersect_sweep(torch, o, d, centers, radii, tm,
+                                         name, timed=False)
+        out[name] = res
+        return got
 
     out = {}
     # rays far above the scene, pointing up: nothing is hit
     o = torch.stack([rnd(n) * 20 - 10, 2000 + rnd(n), rnd(n) * 20 - 10], 1)
     d = unit()
     d[:, 1] = d[:, 1].abs() + 0.1
-    res, _ = run(o, d)
-    require(res["hits"] == 0, "rays pointing away must miss everything")
-    out["miss_everything"] = res
+    run("miss_everything", o, d)
+    require(out["miss_everything"]["hits"] == 0,
+            "rays pointing away must miss everything")
     # inside the hollow glass (sphere 4, radius -0.99, inside sphere 3):
     # the far root of the negative-radius shell is the first hit
     o = torch.tensor([-2.0, 1.0, 0.0]) + unit() * (rnd(n, 1) * 0.5)
     d = unit()
     d[:, 1] = d[:, 1].abs()
-    res, (_, idx, _) = run(o, d)
-    require(bool((idx == 4).all()) and res["hits"] == n,
+    _, idx, _ = run("inside_hollow_glass", o, d)
+    require(bool((idx == 4).all())
+            and out["inside_hollow_glass"]["hits"] == n,
             "rays inside the hollow glass must hit the inner shell")
-    out["inside_hollow_glass"] = res
     # a restart on the r = 1000 ground sphere: the origin sits on the
     # surface to float32 rounding, the exit root straddles t_min
     nrm = torch.stack([rnd(n) * 0.02 - 0.01, torch.ones(n),
                        rnd(n) * 0.02 - 0.01], 1)
     nrm = nrm / nrm.norm(dim=1, keepdim=True)
     o = torch.tensor([0.0, -1000.125, 0.0]) + nrm * 1000.0
-    out["ground_restart"], _ = run(o, nrm + unit())
+    run("ground_restart", o, nrm + unit())
     # a wide t_min window: near roots inside it are refused for far ones
     o = torch.stack([rnd(n) * 8 - 4, rnd(n) * 2, rnd(n) * 8], 1)
-    out["t_min_window_0.5"], _ = run(o, unit(), tm=0.5)
-    # exact ties: every sphere twice, the earlier copy must win
-    c2 = torch.cat([scene.centers[:40], scene.centers[:40]])
-    r2 = torch.cat([scene.radii[:40], scene.radii[:40]])
-    res, (_, idx, hit) = run(o, unit() * 3.0, centers=c2, radii=r2)
-    require(bool((idx < 40).all()) and res["hits"] > 0,
+    run("t_min_window_0.5", o, unit(), tm=0.5)
+    # exact ties: every sphere twice, 41 places apart (an odd offset: the
+    # copies lie in two threads' partitions at every K > 1); the earlier
+    # copy must win
+    c2 = torch.cat([scene.centers[:41], scene.centers[:41]])
+    r2 = torch.cat([scene.radii[:41], scene.radii[:41]])
+    _, idx, _ = run("exact_ties", o, unit() * 3.0, centers=c2, radii=r2)
+    require(bool((idx < 41).all()) and out["exact_ties"]["hits"] > 0,
             "a tie must keep the earliest sphere")
-    out["exact_ties"] = res
     # one ray, one sphere
-    res, (t, _, _) = run(torch.zeros(1, 3), torch.tensor([[0.0, 0.0, -4.0]]),
-                         centers=torch.tensor([[0.0, 0.0, -2.0]],
-                                              device=dev),
-                         radii=torch.tensor([1.0], device=dev))
+    t, _, _ = run("one_ray_one_sphere", torch.zeros(1, 3),
+                  torch.tensor([[0.0, 0.0, -4.0]]),
+                  centers=torch.tensor([[0.0, 0.0, -2.0]], device=dev),
+                  radii=torch.tensor([1.0], device=dev))
     require(abs(float(t[0]) - 0.25) < 1e-6, "t is in units of |d|")
-    out["one_ray_one_sphere"] = res
+    # exact tangents (disc == 0: a miss in t-space), planted ties 1 to 32
+    # places apart, roots below, on and above t_min, a hollow shell: the
+    # exact answers (closest_hit_checks.tspace_ties_and_grazes)
+    o, d, c3, r3, tm, want = chk.tspace_ties_and_grazes(dev)
+    got = run("tspace_ties_and_grazes", o, d, centers=c3, radii=r3, tm=tm)
+    exact = chk.bit_diff((got[2], got[0], got[1]),
+                         (want[2], want[0], want[1]))
+    out["tspace_ties_and_grazes"]["vs_exact"] = exact
+    require(not any(exact.values()), "intersect misses the exact answers "
+            f"of tspace_ties_and_grazes: {exact}")
     for name, res in out.items():
         require(res["ok"], f"intersect disagrees on {name}: {res}")
     return out
@@ -1883,7 +1966,13 @@ def closest_hit_train_shape(rt, torch):
 
 
 def intersect_checks(rt, torch):
+    """intersect on synthetic cases and on the tiled engine's real rays of
+    the huge scene at the training path's two shapes (960000 and 131072
+    rays), at bounce 0 and after three bounces: against its plain version,
+    at every K bit-equal, and timed on the mid-path rays with its bounds."""
     from raytracinginoneweekend_tpu_torch import cli
+    from raytracinginoneweekend_tpu_torch.closest_hit_checks import (
+        disc_pairs)
     from raytracinginoneweekend_tpu_torch.ops.cuda_intersect import (
         closest_hit_cuda)
     from raytracinginoneweekend_tpu_torch.ops.intersect import closest_hit
@@ -1904,6 +1993,7 @@ def intersect_checks(rt, torch):
             batch.to(torch.int32).to(dev), TRAIN["spp"]),
     }
     n_sph = scene.centers.shape[0]
+    geom = (*scene.centers.unbind(1), scene.radii)
     for n, (ids, spp) in shapes.items():
         rays = training_rays(rt, torch, scene, cam, ids, spp, bounces=3)
         for tag, (o, d) in zip(("", "_after_3_bounces"), rays):
@@ -1927,6 +2017,12 @@ def intersect_checks(rt, torch):
         t_bytes = (n * IX_BYTES_PER_RAY + n_sph * 16) / PEAK_BYTES_PER_S
         res["bound_ms"] = max(t_ops, t_bytes) * 1e3
         res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        n_gt, n_pairs = disc_pairs(tuple(o.unbind(1)) + tuple(d.unbind(1)),
+                                   *geom, strict=True)
+        res.update(needed_bound(n_pairs, n_gt, t_bytes,
+                                hit_flops=IX_HIT_FLOPS, strict=True))
+        res["k_sweep"] = intersect_sweep(torch, o, d, scene.centers,
+                                         scene.radii, t_min, f"{n} rays")
     return out
 
 
@@ -3083,27 +3179,37 @@ def coherent_path_phase(rt, torch, nvidia_smi: str):
 # grouped_path phase: the sphere-group kernel on coherent rays
 # --------------------------------------------------------------------- #
 
-def group_lane_candidates(torch, rays, groups, act) -> int:
+def group_lane_candidates(torch, rays, geom_s, groups, act) -> tuple:
     """The sorted spheres that closest_hit_grouped's contract makes the
     active lanes test, from the INPUTS alone, in plain PyTorch: a lane
     must test a group whose bound it might hit itself (the kernel's own
     test); the kernel skips a group only when a whole warp need not, so it
-    tests at least this much -- the operations its bound is stated with."""
+    tests at least this much -- the operations its bound is stated with.
+    -> (those (lane, sphere) pairs, the pairs among them whose
+    discriminant is > 0: the pairs that go on to the square root, from
+    which the needed bound is stated)."""
     from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
 
     ox, oy, oz, dx, dy, dz = (p.reshape(-1, 1) for p in rays)
     gx, gy, gz, gr = (g[None, :] for g in groups)
+    cx, cy, cz, r = (g[None, :] for g in geom_s)
     a = dx * dx + dy * dy + dz * dz
-    total = 0
+    total, total_gt = 0, 0
     live = (act > 0).reshape(-1)
-    for lo in range(0, ox.shape[0], 1 << 18):
-        sl = slice(lo, lo + (1 << 18))
+    for lo in range(0, ox.shape[0], 1 << 16):
+        sl = slice(lo, lo + (1 << 16))
         ocx, ocy, ocz = ox[sl] - gx, oy[sl] - gy, oz[sl] - gz
         b = ocx * dx[sl] + ocy * dy[sl] + ocz * dz[sl]
         c = ocx * ocx + ocy * ocy + ocz * ocz - gr * gr
         might = (b * b - a[sl] * c > 0) & ((b < 0) | (c < 0))
-        total += int((might & live[sl, None]).sum())
-    return total * seg.GROUP
+        might &= live[sl, None]
+        total += int(might.sum())
+        ocx, ocy, ocz = ox[sl] - cx, oy[sl] - cy, oz[sl] - cz
+        b = ocx * dx[sl] + ocy * dy[sl] + ocz * dz[sl]
+        c = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+        gt = (b * b - a[sl] * c > 0).reshape(b.shape[0], -1, seg.GROUP)
+        total_gt += int((gt & might[..., None]).sum())
+    return total * seg.GROUP, total_gt
 
 
 def grouped_checks(torch, name, rays, act, eng, sorted_params, groups,
@@ -3113,7 +3219,10 @@ def grouped_checks(torch, name, rays, act, eng, sorted_params, groups,
     against closest_hit on the unsorted scene in the terms of the JAX
     package's test (tests/test_pallas_intersect.py: the same hit, t within
     rtol 2e-4 / atol 1e-3, the same material), its own count of the
-    group-tests it skipped, and its times beside closest_hit's."""
+    group-tests it skipped, its times beside closest_hit's, its bounds,
+    and its K sweep (every K of ``GROUPED_SPLITS`` bit-equal with the
+    plain version, timed, with the share of group tests skipped)."""
+    from raytracinginoneweekend_tpu_torch.closest_hit_checks import bit_diff
     from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
 
     geom_s = sorted_params[:4]
@@ -3143,7 +3252,9 @@ def grouped_checks(torch, name, rays, act, eng, sorted_params, groups,
     for k, p in zip(mats, seg.resolve_params(s1, eng.sphere_params)[4:]):
         mat_same &= seg_out[k] == p
     n_act = int(live.sum())
-    tested = group_lane_candidates(torch, rays, groups, act)
+    n_g = groups[0].numel()
+    tested, tested_gt = group_lane_candidates(torch, rays, geom_s, groups,
+                                              act)
     hits = live & (hk > 0) & (hr > 0)
     skipped, in_all = (int(v) for v in stats.tolist())
     res = {"rays": name, "lanes": act.numel(), "active": n_act,
@@ -3156,7 +3267,7 @@ def grouped_checks(torch, name, rays, act, eng, sorted_params, groups,
            "group_tests_skipped": skipped, "group_tests": in_all,
            "share_skipped": skipped / max(in_all, 1),
            "share_skippable_lane_by_lane":
-               1.0 - tested / (seg.GROUP * max(n_act, 1) * groups[0].numel()),
+               1.0 - tested / (seg.GROUP * max(n_act, 1) * n_g),
            "max_abs_err": float((tk - tr).abs()[hits].max())
            if bool(hits.any()) else 0.0,
            "int_mismatch": int((live & ((hk != hr) | (sk != sr))).sum())}
@@ -3169,10 +3280,32 @@ def grouped_checks(torch, name, rays, act, eng, sorted_params, groups,
         lambda: seg.segment_closest_hit(rays, *eng.sphere_params[:4],
                                         eng.t_min, active=act,
                                         table=eng.htable))
-    res.update(bound(n_act * groups[0].numel() * GROUP_TEST_FLOPS
-                     + tested * IX_FLOPS_PER_SPHERE,
-                     lane_bytes(act.numel(), n_act)
-                     + geom_s[0].numel() * 16 + groups[0].numel() * 16))
+    nbytes = (lane_bytes(act.numel(), n_act) + geom_s[0].numel() * 16
+              + n_g * 16)
+    group_ops = n_act * n_g * GROUP_TEST_FLOPS
+    res.update(bound(group_ops + tested * IX_FLOPS_PER_SPHERE, nbytes))
+    res.update(needed_bound(tested, tested_gt, nbytes / PEAK_BYTES_PER_S,
+                            hit_flops=IX_HIT_FLOPS, strict=True,
+                            other_ops=group_ops))
+    sweep = {}
+    for k in seg.GROUPED_SPLITS:
+        st = torch.zeros(2, dtype=torch.int64, device=act.device)
+
+        def run(k=k, stats=None):
+            return seg.segment_closest_hit_grouped(
+                rays, *geom_s, groups, eng.t_min, active=act, stats=stats,
+                split=k)
+
+        diff = bit_diff(run(stats=st), (hr, tr, sr))
+        require(not any(diff.values()), f"closest_hit_grouped at K = {k} "
+                f"is not bit-equal with its plain version ({name}): {diff}")
+        sk_, tot = (int(v) for v in st.tolist())
+        sweep[f"K{k}"] = dict(diff, ms=device_ms(run),
+                              share_skipped=sk_ / max(tot, 1))
+    sweep["picked"] = seg.picked_grouped_split(act.numel(),
+                                               act.device.index)
+    res["split"] = sweep["picked"]
+    res["k_sweep"] = sweep
     res["ok"] = (bit_equal and via_trace
                  and res["hit_differs_from_closest_hit"] <= 1e-4 * n_act
                  and res["winner_differs"] <= 1e-4 * n_act
@@ -3184,50 +3317,55 @@ def grouped_checks(torch, name, rays, act, eng, sorted_params, groups,
 def grouped_path_phase(rt, torch, nvidia_smi: str):
     """The sphere-group kernel on the rays it was designed for: the camera
     rays of a full-width frame's first pool (2^20 lanes, tile ownership:
-    neighbouring lanes on neighbouring pixels) and a mid-frame state of the
-    same frame, each through ``trace_segment(group_params=...)`` with the
-    launch counts read around those two calls; then the checks of
-    ``grouped_checks``. No engine of the port calls this kernel (nor does
-    the JAX package's)."""
+    neighbouring lanes on neighbouring pixels), a mid-frame state of the
+    same frame and the camera rays of the default pool (32768 lanes), each
+    through ``trace_segment(group_params=...)`` with the launch counts read
+    around those three calls; then the checks of ``grouped_checks``. No
+    engine of the port calls this kernel (nor does the JAX package's)."""
     from raytracinginoneweekend_tpu_torch import kernels
     from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
     from raytracinginoneweekend_tpu_torch.ops import wavefront
 
     shape = dict(width=MAIN["width"], height=MAIN["height"],
                  spp=MAIN["spp"], depth=MAIN["depth"])
-    eng = make_engine(rt, torch, "huge", "cpu", "thinlens",
-                      dataclasses.replace(rt.DEFAULT, ownership="tile"),
+    tile = dataclasses.replace(rt.DEFAULT, ownership="tile")
+    eng = make_engine(rt, torch, "huge", "cpu", "thinlens", tile,
                       pool_size=1 << 20, **shape)
-    states = {"camera_rays": wavefront.engine_prologue(eng),
-              "mid_frame": mid_frame_state(eng, 40)}
+    small = make_engine(rt, torch, "huge", "cpu", "thinlens", tile,
+                        pool_size=1 << 15, **shape)
+    states = {"camera_rays": (eng, wavefront.engine_prologue(eng)),
+              "mid_frame": (eng, mid_frame_state(eng, 40)),
+              "camera_rays_32768": (small, wavefront.engine_prologue(small))}
     sorted_params, groups = seg.group_scene(eng.sphere_params)
     perm = seg.group_order(eng.sphere_params)
     kernels.reset_launches()
     torch.cuda.synchronize()
     segs = {name: seg.trace_segment(tuple(st[4:10]), sorted_params,
-                                    eng.t_min, active=st[3],
+                                    e.t_min, active=st[3],
                                     group_params=groups)
-            for name, st in states.items()}
+            for name, (e, st) in states.items()}
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     require(launches["closest_hit_grouped"] == len(states)
             and sum(launches.values()) == len(states),
             f"trace_segment(group_params=...) launched {launches}")
-    out = {name: grouped_checks(torch, name, tuple(st[4:10]), st[3], eng,
+    out = {name: grouped_checks(torch, name, tuple(st[4:10]), st[3], e,
                                 sorted_params, groups, perm, segs[name])
-           for name, st in states.items()}
+           for name, (e, st) in states.items()}
     emit({"phase": "grouped_path", "card": nvidia_smi, **shape,
           "pool": eng.lanes, "groups": groups[0].numel(),
           "launches": launches, "checks": out})
     for name, res in out.items():
         require(res["ok"], f"closest_hit_grouped on the {name}: {res}")
-    require(out["camera_rays"]["hit_differs_from_closest_hit"] == 0,
-            "closest_hit_grouped and closest_hit disagree on a camera ray")
+    for name in ("camera_rays", "camera_rays_32768"):
+        require(out[name]["hit_differs_from_closest_hit"] == 0,
+                "closest_hit_grouped and closest_hit disagree on a camera "
+                f"ray ({name})")
     main = out["camera_rays"]
-    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "lanes",
-            "active", "share_skipped", "share_skippable_lane_by_lane",
-            "closest_hit_ms_same_rays", "hit_differs_from_closest_hit",
-            "winner_differs")
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", *IX_NEEDED,
+            "lanes", "active", "share_skipped",
+            "share_skippable_lane_by_lane", "closest_hit_ms_same_rays",
+            "hit_differs_from_closest_hit", "winner_differs", "split")
     entry = {"name": "closest_hit_grouped", "route": "cuda",
              "source": "raytracinginoneweekend_tpu_torch/csrc/"
                        "closest_hit_grouped.cu",
@@ -3239,7 +3377,12 @@ def grouped_path_phase(rt, torch, nvidia_smi: str):
                                        for r in out.values()),
              **{k: main[k] for k in keys}, "library_ms": None,
              "rays": "camera rays of the first pool, tile ownership",
-             "at_mid_frame": {k: out["mid_frame"][k] for k in keys}}
+             "k_sweep_ms": {k: v["ms"] for k, v in main["k_sweep"].items()
+                            if k != "picked"},
+             "at_mid_frame": {k: out["mid_frame"][k]
+                              for k in (*keys, "k_sweep")},
+             "at_32768_camera_rays": {k: out["camera_rays_32768"][k]
+                                      for k in (*keys, "k_sweep")}}
     return entry
 
 
@@ -3515,10 +3658,12 @@ def train_path_phase(rt, torch, nvidia_smi: str):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    target = prender.render(scene, cam, cfg, rt.key_words(0), device=dev)
-    torch.cuda.synchronize()
-    target_seconds = time.perf_counter() - t0
+    with timed_entry(torch, "rtw_closest_hit_n3") as intersect_ms:
+        t0 = time.perf_counter()
+        target = prender.render(scene, cam, cfg, rt.key_words(0),
+                                device=dev)
+        torch.cuda.synchronize()
+        target_seconds = time.perf_counter() - t0
     after_target = dict(kernels.LAUNCHES)
     peak_target = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3545,6 +3690,9 @@ def train_path_phase(rt, torch, nvidia_smi: str):
             f"the target render's launches: {after_target}")
     require(launches["intersect"] == after_target["intersect"],
             "the AD trace launched the intersect kernel")
+    require(len(intersect_ms) == after_target["intersect"],
+            f"{len(intersect_ms)} intersect launches timed in the target "
+            f"render, {after_target['intersect']} counted")
     require(launches["closest_hit"] == depth * n_steps,
             f"closest_hit was launched {launches['closest_hit']} times in "
             f"{n_steps} steps of depth {depth}: backward must not launch it "
@@ -3608,6 +3756,8 @@ def train_path_phase(rt, torch, nvidia_smi: str):
           "which": which, "engine": "auto -> " + inverse.resolve_ad_engine(
               depth, options.rr_terminate),
           "target_seconds": target_seconds,
+          "target_intersect_seconds": sum(intersect_ms) / 1e3,
+          "target_intersect_launches_timed": len(intersect_ms),
           "target_camera_rays": w * h * TRAIN["target_spp"],
           "launches_target": after_target, "launches": launches,
           "rays_per_step": rays_per_step,
@@ -3626,6 +3776,36 @@ def train_path_phase(rt, torch, nvidia_smi: str):
     train_pool_path(rt, torch, nvidia_smi, scene, perturbed, cam, which,
                     options)
     return launches
+
+
+@contextlib.contextmanager
+def timed_entry(torch, name: str):
+    """CUDA events around every call of the C entry ``name`` while the
+    block runs, recorded on the current stream right before and after the
+    launch (the wrapper's own work outside them) -> a list that, after the
+    block, holds each launch's device milliseconds. Event records do not
+    synchronise, so the timed work runs as it would."""
+    from raytracinginoneweekend_tpu_torch import kernels
+
+    fn = kernels.entry(name)
+    pairs, out = [], []
+
+    def wrapper(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = fn(*args)
+        stop.record()
+        pairs.append((start, stop))
+        return err
+
+    kernels._fns[name] = wrapper
+    try:
+        yield out
+    finally:
+        kernels._fns[name] = fn
+    torch.cuda.synchronize()
+    out.extend(a.elapsed_time(b) for a, b in pairs)
 
 
 def step_apart(torch, optim, inverse, params, scene, cam, tb, ids, key,
@@ -3846,20 +4026,25 @@ def cli_fit_phase(rt, torch, nvidia_smi: str):
 MEAN_TOL = 1e-3
 
 
-def split_loop_sass(lib: str, kernel: str, loop_only: bool) -> dict:
+def split_loop_sass(lib: str, kernel: str, loop_only: bool,
+                    splits=(1, 2, 4, 8, 16, 32), guard: str = "ge") -> dict:
     """Facts of a split-loop kernel (closest_hit_kernel,
-    closest_hit_sorted_kernel, mega_bounce_kernel, closest_hit_mxu_kernel
-    or closest_hit_list_kernel), read from its built library with
-    cuobjdump: for each K, registers, stack and local memory
-    (-res-usage; a spill would show as local memory), and from the SASS
-    its instruction count, its CALLs, the sqrt slow-path calls among them
-    (a CALL within 8 instructions after a MUFU.RSQ: the IEEE sqrtf leaves
-    its fast path for arguments outside the normal range, a negative one
-    included), and ``sqrt_only_where_disc_ge_0``: for every MUFU.RSQ of
-    the sphere loop, the nearest branch before it is ``@!Pn BRA`` and Pn
-    was last set by ``FSETP.GE ... Rx, RZ`` on the register Rx that the
-    MUFU.RSQ takes -- a negative discriminant branches around the sqrt and
-    its slow path. The sphere loop is the whole of closest_hit_kernel;
+    closest_hit_sorted_kernel, mega_bounce_kernel, closest_hit_mxu_kernel,
+    closest_hit_list_kernel, intersect_kernel or
+    closest_hit_grouped_kernel, instantiated at each K of ``splits``), read
+    from its built library with cuobjdump: for each K, registers, stack and
+    local memory (-res-usage; a spill would show as local memory), and from
+    the SASS its instruction count, its CALLs, the sqrt slow-path calls
+    among them (a CALL within 8 instructions after a MUFU.RSQ: the IEEE
+    sqrtf leaves its fast path for arguments outside the normal range, a
+    negative one included), and ``sqrt_only_where_disc_ge_0`` (with
+    ``guard="gt"``, for the t-space kernels, ``sqrt_only_where_disc_gt_0``):
+    for every MUFU.RSQ of the sphere loop, the nearest branch before it is
+    ``@!Pn BRA`` and Pn was last set by ``FSETP.GE ... Rx, RZ``
+    (``FSETP.GT``) on the register Rx that the MUFU.RSQ takes -- a negative
+    discriminant
+    (with ``gt`` a zero one too) branches around the sqrt and its slow
+    path. The sphere loop is the whole of closest_hit_kernel;
     with ``loop_only`` it is the code from the first 128-bit shared-memory
     load (LDS.128: the loop reads the sphere table as float4s) to the last
     branch back to one of them (the loop's back edge), which leaves out
@@ -3917,8 +4102,8 @@ def split_loop_sass(lib: str, kernel: str, loop_only: bool) -> dict:
         setp = next((i for i in range(bra - 1, -1, -1)
                      if re.match(rf"\S+ {p.group(1)},", ins[i])), None)
         return setp is not None and re.match(
-            rf"FSETP\.GEU?\.AND {p.group(1)}, PT, {src.group(1)}, RZ",
-            ins[setp]) is not None
+            rf"FSETP\.{guard.upper()}U?\.AND {p.group(1)}, PT, "
+            rf"{src.group(1)}, RZ", ins[setp]) is not None
 
     for name, ins in code.items():
         rsq = [i for i, x in enumerate(ins) if x.startswith("MUFU.RSQ")]
@@ -3938,9 +4123,9 @@ def split_loop_sass(lib: str, kernel: str, loop_only: bool) -> dict:
             calls=sum(x.startswith("CALL") for x in ins),
             mufu_rsq=len(rsq), mufu_rsq_sphere_loop=len(loop),
             sqrt_slow_path_calls=len(slow),
-            sqrt_only_where_disc_ge_0=bool(loop) and all(
-                guarded(ins, r) for r in loop))
-    require(sorted(out) == sorted(f"K{k}" for k in (1, 2, 4, 8, 16, 32))
+            **{f"sqrt_only_where_disc_{guard}_0": bool(loop) and all(
+                guarded(ins, r) for r in loop)})
+    require(sorted(out) == sorted(f"K{k}" for k in splits)
             and all("registers" in v and "mufu_rsq" in v
                     for v in out.values()),
             f"cuobjdump report of {kernel} incomplete: {out}")
@@ -4017,6 +4202,7 @@ def main(argv=None) -> int:
 
     import raytracinginoneweekend_tpu_torch as rt
     from raytracinginoneweekend_tpu_torch import kernels
+    from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
 
     t_start = time.perf_counter()
     nvidia_smi = subprocess.run(
@@ -4041,6 +4227,20 @@ def main(argv=None) -> int:
                         for v in facts.values()),
                     f"{name}_kernel takes a sqrt in its sphere loop that a "
                     f"negative discriminant can reach: {facts}")
+            require(all(v["local_bytes"] == 0 for v in facts.values()),
+                    f"{name}_kernel spills to local memory: {facts}")
+        tsass = {name: split_loop_sass(
+                     libs[f"{name}.cu"], f"{name}_kernel", loop_only=True,
+                     splits=splits, guard="gt")
+                 for name, splits in (
+                     ("intersect", seg.CH_SPLITS),
+                     ("closest_hit_grouped", seg.GROUPED_SPLITS))}
+        emit({"phase": "intersect_build", **tsass})
+        for name, facts in tsass.items():
+            require(all(v["sqrt_only_where_disc_gt_0"]
+                        for v in facts.values()),
+                    f"{name}_kernel takes a sqrt in its sphere loop that a "
+                    f"discriminant <= 0 can reach: {facts}")
             require(all(v["local_bytes"] == 0 for v in facts.values()),
                     f"{name}_kernel spills to local memory: {facts}")
         emit({"phase": "shade_regen_build",
@@ -4096,7 +4296,7 @@ def main(argv=None) -> int:
         # coherent engines' full-width frames for the list, sorted and mxu
         # kernels and shade_only (--fusion off), the training path
         # for intersect (and closest_hit again, under autograd), the
-        # grouped path's two trace_segment(group_params=...) calls, and
+        # grouped path's three trace_segment(group_params=...) calls, and
         # the full-width --fusion bounce frame for mega_bounce (both set by
         # their phases)
         name = k["name"]

@@ -1,24 +1,31 @@
 """Check cases, counts and plain emulations for the split-loop closest-hit
 kernels (``csrc/closest_hit.cu``, ``csrc/closest_hit_sorted.cu``,
-``csrc/closest_hit_mxu.cu``, ``csrc/closest_hit_list.cu`` and the loop of
-``csrc/mega_bounce.cu``).
+``csrc/closest_hit_mxu.cu``, ``csrc/closest_hit_list.cu``, the loop of
+``csrc/mega_bounce.cu``, and the two t-space kernels ``csrc/intersect.cu``
+and ``csrc/closest_hit_grouped.cu``).
 
 ``chip_smoke.py`` holds the kernels against them on the card and
 ``tests/test_torch_closest_hit_split.py``, ``tests/test_torch_sorted_
-split.py`` and ``tests/test_torch_mxu_list_split.py`` on the CPU:
+split.py``, ``tests/test_torch_mxu_list_split.py`` and
+``tests/test_torch_tspace_split.py`` on the CPU:
   * ``ties_and_grazes``: a small sphere table of its own whose answers are
     exact in float32 -- duplicate spheres split across the kernel's K-way
     partitions, an exact graze, a ray that misses everything -- and
     ``ties_and_grazes_lists``, cull lists for it whose order runs against
-    the ids;
+    the ids; ``tspace_ties_and_grazes``, its t-space counterpart for the
+    (N, 3) intersect kernel (exact tangents, which t-space counts as
+    misses, roots on and across t_min, a hollow shell);
   * ``bit_diff``: where two (hit, t, sb) results differ at all;
   * ``disc_pairs``: how many (lane, sphere) pairs of an input reach the
-    kernel's square root (discriminant >= 0; ``regrouped`` for the mxu
-    kernel's arithmetic). The rest stop after the discriminant and its
-    compare, so the count gives the work that input needs, from which
-    ``chip_smoke.py`` states a second bound;
+    kernel's square root (discriminant >= 0, or > 0 with ``strict`` for
+    the t-space kernels; ``regrouped`` for the mxu kernel's arithmetic).
+    The rest stop after the discriminant and its compare, so the count
+    gives the work that input needs, from which ``chip_smoke.py`` states a
+    second bound;
   * ``mxu_guarded``: the mxu kernel's regrouped candidate with the square
     root only where its discriminant is >= 0 (``rtw_mxu_guarded``);
+  * ``guarded_t``: the t-space candidate with the square root only where
+    the discriminant is > 0 (``rtw_closest_t_guarded``);
   * ``split_min``: the K-way partition of a ray's scan and the warp
     shuffles' lexicographic reduce, in numpy, over any tie key (the
     sphere index of closest_hit and mega_bounce, the position in the
@@ -29,7 +36,11 @@ split.py`` and ``tests/test_torch_mxu_list_split.py`` on the CPU:
     its count of skipped chunks;
   * ``list_split``: closest_hit_list as a whole -- the guarded candidate
     over each cull block's list, the partition of list positions and the
-    reduce over (q, position), the winner mapped through the list.
+    reduce over (q, position), the winner mapped through the list;
+  * ``grouped_split``: closest_hit_grouped as a whole -- the bound test,
+    the vote over a warp of 32 / K rays, each group's 16 spheres split
+    over K threads and the reduce over (t, sorted index) -- with its count
+    of skipped group tests.
 """
 
 from __future__ import annotations
@@ -133,6 +144,91 @@ def ties_and_grazes_lists(device, rows: int = 2):
             torch.from_numpy(active.reshape(nb * rows, 128)).to(device))
 
 
+# tspace_ties_and_grazes: the extra spheres of its table. STRADDLE (r = 1)
+# is met by rays starting on its surface or 0.25 to 0.75 units before it,
+# so that the near root falls below, ON or above t_min = TSPACE_T_MIN;
+# GLASS (r = 2) holds the hollow shell GLASS_INNER (r = -1.5), which a ray
+# starting at their common centre hits first.
+STRADDLE_SPHERE, GLASS_SPHERE, GLASS_INNER = 70, 80, 81
+TSPACE_T_MIN = 0.25
+
+
+def tspace_ties_and_grazes(device, n: int = 1040):
+    """The t-space synthetic case of the (N, 3) intersect kernel on
+    ``ties_and_grazes``' table with three more spheres -> (origin, direction
+    (N, 3), centers (S, 3), radii (S,), t_min, (t, idx, hit) expected), all
+    on ``device``.
+
+    Every number is small and exact in float32, so the expected answers
+    are exact whatever the order of the sums; each ray kind i (of 13,
+    ``lane % 13``) comes at |d| = 1 or 2 and 4 offsets m:
+      * i < 9: along +z at TIE_PAIRS[i]'s identical spheres (1 to 32 places
+        apart: for every K some pair lies in two threads' partitions),
+        hitting the earlier copy at t = (9.5 + m) / |d|;
+      * 9: an exact tangent to the unit sphere GRAZE_SPHERE (disc = 25|d|^2
+        - 25|d|^2 = 0), which t-space counts as a MISS (and kernel 1's
+        q-space loop as a hit), and nothing else on its line;
+      * 10: up, missing everything (t 1e30, idx 0);
+      * 11: along +z from STRADDLE's surface (near root 0), 0.25 before it
+        (near root exactly t_min at |d| = 1: refused, strict `>`), 0.5 or
+        0.75 before it (near root past t_min): the far root, the far root,
+        the near root, the near root;
+      * 12: from the centre of GLASS, hitting its hollow inner shell
+        GLASS_INNER (r = -1.5) at t = 1.5 / |d|.
+    The other spheres lie far from every ray's line."""
+    cx = [float(i) for i in range(TIE_SPHERES)]
+    cy = [-100.0] * TIE_SPHERES
+    cz = [-100.0] * TIE_SPHERES
+    r = [0.25] * TIE_SPHERES
+    cx[GRAZE_SPHERE], cy[GRAZE_SPHERE], cz[GRAZE_SPHERE] = 0.0, 0.0, 0.0
+    r[GRAZE_SPHERE] = 1.0
+    for i, pair in enumerate(TIE_PAIRS):
+        for s in pair:
+            cx[s], cy[s], cz[s], r[s] = 10.0 + 3 * i, 0.0, 30.0, 0.5
+    cx[STRADDLE_SPHERE], cy[STRADDLE_SPHERE], cz[STRADDLE_SPHERE] = (
+        100.0, 0.0, 50.0)
+    r[STRADDLE_SPHERE] = 1.0
+    for s, rad in ((GLASS_SPHERE, 2.0), (GLASS_INNER, -1.5)):
+        cx[s], cy[s], cz[s], r[s] = 200.0, 0.0, 50.0, rad
+    o, d, want = [], [], []
+    for lane in range(n):
+        kind, m = lane % 13, (lane // 13) % 4
+        v = 1.0 + (lane // 52) % 2
+        if kind < len(TIE_PAIRS):
+            o.append((10.0 + 3 * kind, 0.0, 20.0 - m))
+            d.append((0.0, 0.0, v))
+            want.append(((9.5 + m) / v, TIE_PAIRS[kind][0], True))
+        elif kind == 9:
+            o.append((-5.0, 1.0, 0.0))
+            d.append((v, 0.0, 0.0))
+            want.append((1e30, 0, False))
+        elif kind == 10:
+            o.append((0.0, 100.0, 0.0))
+            d.append((0.0, v, 0.0))
+            want.append((1e30, 0, False))
+        elif kind == 11:
+            back = 1.0 + 0.25 * m  # from the centre, along -z
+            o.append((100.0, 0.0, 50.0 - back))
+            d.append((0.0, 0.0, v))
+            near, far = back - 1.0, back + 1.0
+            want.append(((near if near / v > TSPACE_T_MIN else far) / v,
+                         STRADDLE_SPHERE, True))
+        else:
+            o.append((200.0, 0.0, 50.0))
+            d.append((0.0, 0.0, v))
+            want.append((1.5 / v, GLASS_INNER, True))
+
+    def f32(rows):
+        return torch.tensor(rows, dtype=torch.float32, device=device)
+
+    expect = (f32([w[0] for w in want]),
+              torch.tensor([w[1] for w in want], dtype=torch.int32,
+                           device=device),
+              torch.tensor([w[2] for w in want], device=device))
+    return (f32(o), f32(d), f32(list(zip(cx, cy, cz))), f32(r),
+            TSPACE_T_MIN, expect)
+
+
 def bit_diff(got, want) -> dict:
     """Lanes where two (hit, t, sb) results differ at all: the hit flag,
     the sphere index, the bits of t (every lane, inactive ones too)."""
@@ -144,13 +240,18 @@ def bit_diff(got, want) -> dict:
 
 
 def disc_pairs(rays, cx, cy, cz, r, active=None, chunk: int = 1 << 15,
-               regrouped: bool = False) -> tuple[int, int]:
-    """-> (pairs whose discriminant b*b - a*c is >= 0, all pairs) over the
-    active lanes and every sphere, with the kernel's float32 arithmetic
-    (rtw_closest_guarded in csrc/rtw_common.cuh, or with ``regrouped`` the
-    mxu kernel's rtw_mxu_guarded; a NaN discriminant counts as < 0, as the
-    guard treats it). Works in slabs of ``chunk`` lanes so the (lanes,
-    spheres) intermediates stay bounded."""
+               regrouped: bool = False,
+               strict: bool = False) -> tuple[int, int]:
+    """-> (pairs whose discriminant b*b - a*c is >= 0, or > 0 with
+    ``strict``, all pairs) over the active lanes and every sphere, with the
+    kernel's float32 arithmetic (rtw_closest_guarded in
+    csrc/rtw_common.cuh; with ``regrouped`` the mxu kernel's
+    rtw_mxu_guarded; with ``strict`` the t-space kernels'
+    rtw_closest_t_guarded, whose discriminant is rtw_closest_guarded's and
+    whose guard is `> 0`; a NaN discriminant counts as not reaching the
+    square root, as the guards treat it). ``rays`` are six planes, or six
+    (N,) columns of (N, 3) rays. Works in slabs of ``chunk`` lanes so the
+    (lanes, spheres) intermediates stay bounded."""
     planes = [p.reshape(-1, 1) for p in rays]
     if active is not None:
         act = active if active.dtype == torch.bool else active > 0
@@ -173,7 +274,7 @@ def disc_pairs(rays, cx, cy, cz, r, active=None, chunk: int = 1 << 15,
             b = ocx * vx + ocy * vy + ocz * vz
             c = ocx * ocx + ocy * ocy + ocz * ocz - rr
             disc = b * b - a * c
-        n_ge += int((disc >= 0).sum())
+        n_ge += int(((disc > 0) if strict else (disc >= 0)).sum())
     return n_ge, ox.shape[0] * rr.shape[1]
 
 
@@ -219,6 +320,24 @@ def guarded(x, y, z, vx, vy, vz, a, q_min, cx, cy, cz, rr):
     big = torch.full_like(q0, float(BIG))
     q = torch.where(q0 > q_min, q0, torch.where(q1 > q_min, q1, big))
     return torch.where(pos, q, big)
+
+
+def guarded_t(x, y, z, vx, vy, vz, a, inv_a, t_min, cx, cy, cz, rr):
+    """rtw_closest_t_guarded's candidate (csrc/rtw_common.cuh) broadcast
+    over (rays, spheres): the t-space arithmetic of the TPU intersect
+    kernel, the roots and the window only where the discriminant is > 0,
+    RTW_BIG elsewhere; ``inv_a`` = 1 / a, ``rr`` = r * r."""
+    ocx, ocy, ocz = x - cx, y - cy, z - cz
+    b = ocx * vx + ocy * vy + ocz * vz
+    c = ocx * ocx + ocy * ocy + ocz * ocz - rr
+    disc = b * b - a * c
+    pos = disc > 0
+    sq = torch.sqrt(torch.where(pos, disc, torch.ones_like(disc)))
+    nb = -b
+    t0, t1 = (nb - sq) * inv_a, (nb + sq) * inv_a
+    big = torch.full_like(t0, float(BIG))
+    t = torch.where(t0 > t_min, t0, torch.where(t1 > t_min, t1, big))
+    return torch.where(pos, t, big)
 
 
 def split_min(q: np.ndarray, k: int, key=None, thread=None):
@@ -376,3 +495,54 @@ def list_split(rays, cx, cy, cz, r, counts, lists, t_min, rows: int,
             torch.where(h, q_b * inv_a,
                         torch.full_like(q_b, float(BIG))).reshape(shape),
             torch.where(h, won, torch.zeros_like(won)).reshape(shape))
+
+
+def grouped_split(rays, cx, cy, cz, r, group_params, t_min, active,
+                  k: int):
+    """closest_hit_grouped at K threads a ray (K <= 16), in plain PyTorch
+    (float32, the kernel's operation order) and numpy -> ((hit, t, sb)
+    planes, sb in the sorted order; (groups skipped, groups in all)
+    counted per warp with an active lane, as the kernel's ``stats``).
+
+    Per lane and group the bound test (might = disc > 0 and (b < 0 or
+    c < 0), on an active lane); a warp of 32 / K consecutive lanes runs a
+    group when any of its lanes might hit it; sorted position s of a group
+    that runs goes to thread s % K (thread j of a group takes its spheres
+    j, j + K, ...), and ``split_min`` reduces the guarded t-space
+    candidates over (t, position). Inactive lanes get (0, 1e30, 0)."""
+    from .ops import cuda_segment as seg
+
+    n_g = cx.shape[0] // seg.GROUP
+    w = WARP // k
+    x, y, z, vx, vy, vz = (p.reshape(-1, 1) for p in rays)
+    n = x.shape[0]
+    act = (active if active.dtype == torch.bool else active > 0).reshape(-1)
+    a = vx * vx + vy * vy + vz * vz
+    gx, gy, gz, gr = (g[None, :] for g in group_params)
+    ocx, ocy, ocz = x - gx, y - gy, z - gz
+    b = ocx * vx + ocy * vy + ocz * vz
+    c = ocx * ocx + ocy * ocy + ocz * ocz - gr * gr
+    might = act[:, None] & (b * b - a * c > 0) & ((b < 0) | (c < 0))
+    pad = -n % w
+    if pad:  # lanes past the end vote "no"
+        might = torch.cat([might, torch.zeros(pad, n_g, dtype=torch.bool)])
+    run = might.reshape(-1, w, n_g).any(dim=1)               # (warps, G)
+    warp_active = torch.cat([act, torch.zeros(pad, dtype=torch.bool)]
+                            ).reshape(-1, w).any(dim=1)
+    skipped = int((~run)[warp_active].sum())
+    run_lane = run.repeat_interleave(w, dim=0)[:n]
+    tf = torch.tensor(t_min, dtype=torch.float32)
+    t = guarded_t(x, y, z, vx, vy, vz, a, 1.0 / a, tf, cx[None, :],
+                  cy[None, :], cz[None, :], (r * r)[None, :])
+    keep = act[:, None] & run_lane.repeat_interleave(seg.GROUP, dim=1)
+    t = torch.where(keep, t, torch.full_like(t, float(BIG)))
+    t_b, s_b = split_min(t.numpy(), k)
+    t_b, s_b = torch.from_numpy(t_b), torch.from_numpy(s_b)
+    h = act & (t_b < float(BIG))
+    shape = rays[0].shape
+    out = (h.to(torch.int32).reshape(shape),
+           torch.where(act, t_b, torch.full_like(t_b, float(BIG))
+                       ).reshape(shape),
+           torch.where(act, s_b, torch.zeros_like(s_b)).to(
+               torch.int32).reshape(shape))
+    return out, (skipped, int(warp_active.sum()) * n_g)

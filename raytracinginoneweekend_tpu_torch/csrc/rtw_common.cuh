@@ -122,29 +122,63 @@ __device__ __forceinline__ void rtw_mxu_guarded(
     }
 }
 
-// One sphere's candidate for one ray in t-space, with the guarded
-// discriminant: the TPU intersect kernel's formula in its operation order
-// (closest_hit_n3 in intersect.cu and closest_hit_grouped share it; plain
-// version: ops/intersect._block_candidates). inv_a = 1 / |d|^2,
-// c4 = (cx, cy, cz, r*r). Returns the near root if it is past t_min, else
-// the far root if it is, else RTW_BIG; disc <= 0 is a miss.
-__device__ __forceinline__ float rtw_candidate_t(float x, float y, float z,
-                                                 float vx, float vy,
-                                                 float vz, float a,
-                                                 float inv_a, float t_min,
-                                                 float4 c4) {
+// One sphere's candidate for one ray in t-space, folded into the
+// strict-`<` running min (t_b, s_b) of sphere s: the loop of intersect.cu
+// and closest_hit_grouped.cu (s a sphere id, or a position in the grouped
+// kernel's sorted table). The TPU intersect kernel's formula in its
+// operation order (plain version: ops/intersect._block_candidates):
+// disc = b*b - a*c; where disc > 0, t0 = (-b - sqrt(disc)) * inv_a and
+// t1 = (-b + sqrt(disc)) * inv_a, the near root if it is past t_min, else
+// the far root if it is, else RTW_BIG. inv_a = 1 / |d|^2, c4 = (cx, cy,
+// cz, r*r).
+// The contract is the form that takes sqrt(pos ? disc : 1) on every pair
+// and refuses both roots where !pos. This form takes the square root and
+// the roots only inside `disc > 0`, and is bit-equal with it: inside the
+// branch it does the same operations in the same order; outside it, where
+// disc <= 0 or is NaN, the contract's candidate is RTW_BIG, which can
+// never pass the strict `<` against t_b <= RTW_BIG. Two things keep it so:
+// the guard is STRICT (disc == 0, a tangent, is a miss in t-space, as in
+// the TPU kernel; kernel 1's q-space guard is >= 0), and the compare stays
+// in t (`t > t_min` on (-b -/+ sq) * inv_a, then `t < t_b`): in q = t*a the
+// window's knife edge and exact ties round otherwise.
+__device__ __forceinline__ void rtw_closest_t_guarded(
+        float x, float y, float z, float vx, float vy, float vz, float a,
+        float inv_a, float t_min, float4 c4, int s, float& t_b, int& s_b) {
     const float ocx = x - c4.x;
     const float ocy = y - c4.y;
     const float ocz = z - c4.z;
     const float b = ocx * vx + ocy * vy + ocz * vz;
     const float c = ocx * ocx + ocy * ocy + ocz * ocz - c4.w;
     const float disc = b * b - a * c;
-    const bool pos = disc > 0.0f;
-    const float sq = sqrtf(pos ? disc : 1.0f);
-    const float nb = -b;
-    const float t0 = (nb - sq) * inv_a;
-    const float t1 = (nb + sq) * inv_a;
-    return (pos && t0 > t_min) ? t0 : ((pos && t1 > t_min) ? t1 : RTW_BIG);
+    if (disc > 0.0f) {
+        const float sq = sqrtf(disc);
+        const float nb = -b;
+        const float t0 = (nb - sq) * inv_a;
+        const float t1 = (nb + sq) * inv_a;
+        const float tc = (t0 > t_min) ? t0 : ((t1 > t_min) ? t1 : RTW_BIG);
+        if (tc < t_b) {
+            t_b = tc;
+            s_b = s;
+        }
+    }
+}
+
+// The lexicographic min over (t, s) of the K partials of one ray: the K
+// threads of a ray are K consecutive lanes of a warp (K a power of two up
+// to 32), and every lane of the warp takes part. The ascending strict-`<`
+// running min's answer for any partition of the scan (the one-thread
+// loop's, ties to the smallest s).
+template <int K>
+__device__ __forceinline__ void rtw_reduce_min(float& t_b, int& s_b) {
+#pragma unroll
+    for (int off = K / 2; off > 0; off >>= 1) {
+        const float ot = __shfl_xor_sync(0xffffffffu, t_b, off);
+        const int os = __shfl_xor_sync(0xffffffffu, s_b, off);
+        if (ot < t_b || (ot == t_b && os < s_b)) {
+            t_b = ot;
+            s_b = os;
+        }
+    }
 }
 
 // A thread block's candidate list into shared memory: sph[k] = table[id],

@@ -57,9 +57,10 @@ ENTRIES = {
     # cudaGraph_t -> its programmatic (PDL) edges, or -1 - the error
     "rtw_graph_programmatic_edges": ("shade_regen.cu", [_P]),
     # origin direction | table4 | t idx hit | n_rays n_spheres t_min
-    # | stream
+    # split | stream
     "rtw_closest_hit_n3": ("intersect.cu",
-                           [_P] * 2 + [_P] + [_P] * 3 + [_I, _I, _F, _P]),
+                           [_P] * 2 + [_P] + [_P] * 3
+                           + [_I, _I, _F, _I, _P]),
     # counts lists | act ox oy oz dx dy dz | table4 (S+1) | hit t sb
     # | n_lanes n_spheres block_lanes list_len t_min split | stream
     "rtw_closest_hit_list": ("closest_hit_list.cu",
@@ -84,10 +85,10 @@ ENTRIES = {
                         [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _F, _I,
                          _P]),
     # act ox oy oz dx dy dz | table4 (sorted, S_pad) bounds4 | hit t sb
-    # | stats | n_lanes n_groups t_min | stream
+    # | stats | n_lanes n_groups t_min split | stream
     "rtw_closest_hit_grouped": ("closest_hit_grouped.cu",
                                 [_P] * 7 + [_P] * 2 + [_P] * 3 + [_P]
-                                + [_I, _I, _F, _P]),
+                                + [_I, _I, _F, _I, _P]),
 }
 
 # Launch counts, one per kernel entry; each wrapper adds one where it

@@ -5,13 +5,19 @@ Counterpart of ``raytracinginoneweekend_tpu/ops/pallas_intersect.py``.
 KERNEL NOTE. ``closest_hit_cuda`` on CUDA tensors launches
 ``csrc/intersect.cu``, which replaces the Pallas TPU kernel
 ``pallas_intersect.py::_kernel`` (reached through ``closest_hit_pallas``).
-It is bound by float32 arithmetic (about 32 operations per ray and sphere
-against 33 bytes per ray); the design keeps the sphere table in shared
-memory, one thread per ray, every warp reading one sphere at a time as a
-broadcast, and takes any N with a bounds check where the TPU wrapper pads
-to blocks of 4096 rays (see the source's header). Its plain PyTorch
-version is ``ops/intersect.closest_hit``: the same t-space candidate
-formula in the same order.
+It is bound by float32 instruction issue (about 18 operations per ray and
+sphere where the discriminant is not positive, nearly every pair, 31
+where it is, against 33 bytes per ray; under ``-fmad=false`` each is its
+own instruction). The design keeps the sphere table in shared memory,
+splits each ray's sphere loop over K threads (``closest_hit_split``
+aimed at ``cuda_segment.IX_THREADS_PER_SM`` picks K so that the grid
+fills the card), reduces the K partials lexicographically over (t, sphere
+index) with warp shuffles, takes the square root only where the
+discriminant is positive, and takes any N with a bounds check where the
+TPU wrapper pads to blocks of 4096 rays (see the source's header). The
+result is the one-thread loop's to the bit for every K. Its plain
+PyTorch version is ``ops/intersect.closest_hit``: the same t-space
+candidate formula in the same order.
 
 For a tensor on the CPU the wrapper runs the plain version; for a CUDA
 tensor it launches the kernel or raises -- it never falls back.
@@ -25,16 +31,21 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .cuda_segment import MAX_SPHERES, check_current_device
+from .cuda_segment import (IX_THREADS_PER_SM, MAX_SPHERES,
+                           check_current_device, check_split, picked_split)
 from .intersect import closest_hit
 
 
-def closest_hit_cuda(origin, direction, centers, radii, t_min):
+def closest_hit_cuda(origin, direction, centers, radii, t_min, split=None):
     """Drop-in ``closest_hit``: (N,3), (N,3), (S,3), (S,) -> (t, idx, hit)
     with t (N,) f32 (1e30 where no hit), idx (N,) i32 (0 where no hit),
-    hit (N,) bool. CUDA tensors go through the hand-written kernel on the
-    current stream (no synchronise); CPU tensors through the plain version.
+    hit (N,) bool. ``split`` forces the kernel's K (one of
+    ``cuda_segment.CH_SPLITS``) in place of the picker's
+    (``IX_THREADS_PER_SM``); for measuring, it changes no result. CUDA
+    tensors go through the hand-written kernel on the current stream (no
+    synchronise); CPU tensors through the plain version.
     """
+    check_split("intersect", split)
     if origin.device.type == "cpu":
         return closest_hit(origin, direction, centers, radii, t_min)
     if origin.device.type != "cuda":
@@ -65,13 +76,16 @@ def closest_hit_cuda(origin, direction, centers, radii, t_min):
     check_current_device(device)
     table = torch.cat([centers.detach(), radii.detach()[:, None]],
                       dim=1).contiguous()  # (S, 4) cx cy cz r
+    if split is None:
+        split = picked_split(n, device.index, IX_THREADS_PER_SM)
     t = torch.empty(n, dtype=torch.float32, device=device)
     idx = torch.empty(n, dtype=torch.int32, device=device)
     hit = torch.empty(n, dtype=torch.bool, device=device)
     fn = kernels.entry("rtw_closest_hit_n3")
     err = fn(origin.data_ptr(), direction.data_ptr(), table.data_ptr(),
              t.data_ptr(), idx.data_ptr(), hit.data_ptr(), n, s,
-             float(t_min), torch.cuda.current_stream(device).cuda_stream)
+             float(t_min), split,
+             torch.cuda.current_stream(device).cuda_stream)
     kernels.check(err, "intersect")
     kernels.LAUNCHES["intersect"] += 1
     return t, idx, hit

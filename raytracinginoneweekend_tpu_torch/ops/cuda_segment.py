@@ -45,9 +45,12 @@ KERNEL NOTES, the four siblings (each source's header has the detail):
     ``csrc/closest_hit_grouped.cu`` (replaces ``_kernel_grouped``): the
     spheres sorted into groups of 16 by ``group_scene``, each group behind
     a bounding-sphere test that a warp skips when none of its active lanes
-    might hit it. The t-space candidate of the intersect kernel (guarded
-    ``disc > 0``), so it is held to ``segment_closest_hit`` only within
-    float32 rounding. Bound by arithmetic when nothing is skipped.
+    might hit it; each group's 16 spheres split over K threads a ray (from
+    ``closest_hit_split`` with ``GROUPED_THREADS_PER_SM``, at most 16,
+    reduced over (t, sorted sphere index)). The t-space candidate of the
+    intersect kernel (square root only where ``disc > 0``), so it is held
+    to ``segment_closest_hit`` only within float32 rounding. Bound by
+    arithmetic when nothing is skipped.
   * ``segment_closest_hit_mxu`` launches ``csrc/closest_hit_mxu.cu``
     (replaces ``_kernel_mxu``): the regrouped dot products d.C and o.C in
     the kernel's own body, in float32 in a fixed order; kernel 1's split
@@ -302,6 +305,12 @@ SPLIT_THREADS_PER_SM = 512
 # above each kernel's own K sweep found fastest (chip_smoke.py; PERF.md).
 MXU_THREADS_PER_SM = CH_THREADS_PER_SM
 LIST_THREADS_PER_SM = SPLIT_THREADS_PER_SM
+# ... and of the two t-space kernels, intersect (ops/cuda_intersect.py)
+# and closest_hit_grouped, likewise from their own K sweeps.
+IX_THREADS_PER_SM = CH_THREADS_PER_SM
+GROUPED_THREADS_PER_SM = SPLIT_THREADS_PER_SM
+# csrc/closest_hit_grouped.cu splits a group's 16 spheres: K up to 16.
+GROUPED_SPLITS = tuple(k for k in CH_SPLITS if k <= GROUP)
 
 
 def closest_hit_split(n_lanes: int, n_sms: int,
@@ -334,11 +343,18 @@ def picked_split(n_lanes: int, device_index: int,
                              threads_per_sm)
 
 
-def check_split(name: str, split) -> None:
+def check_split(name: str, split, splits=CH_SPLITS) -> None:
     """``split=`` forces a split-loop kernel's K (for measuring only)."""
-    if split is not None and split not in CH_SPLITS:
-        raise ValueError(f"{name}: split must be one of {CH_SPLITS}; "
+    if split is not None and split not in splits:
+        raise ValueError(f"{name}: split must be one of {splits}; "
                          f"got {split!r}")
+
+
+def picked_grouped_split(n_lanes: int, device_index: int) -> int:
+    """The K of closest_hit_grouped: the picker aimed at
+    ``GROUPED_THREADS_PER_SM``, at most 16 (a group's spheres)."""
+    return min(picked_split(n_lanes, device_index, GROUPED_THREADS_PER_SM),
+               GROUPED_SPLITS[-1])
 
 
 def segment_closest_hit(rays, cx, cy, cz, r, t_min, active=None, table=None,
@@ -832,7 +848,7 @@ def segment_closest_hit_grouped_reference(rays, cx, cy, cz, r, group_params,
 
 
 def segment_closest_hit_grouped(rays, cx, cy, cz, r, group_params, t_min,
-                                active=None, stats=None):
+                                active=None, stats=None, split=None):
     """Closest hit with per-warp sphere-group culling -> (hit_i, t,
     sphere_idx), the index into the SORTED order.
 
@@ -840,10 +856,13 @@ def segment_closest_hit_grouped(rays, cx, cy, cz, r, group_params, t_min,
     multiple of GROUP); group_params: its (gx, gy, gz, gR), (S_pad/GROUP,)
     each. stats: optional (2,) int64 CUDA tensor the kernel ADDS (groups
     skipped, groups in all), counted per warp with an active lane, to.
+    ``split`` forces the kernel's K (one of ``GROUPED_SPLITS``) in place of
+    ``picked_grouped_split``'s; for measuring, it changes no result.
     Results are those of the unculled t-space loop (the bound is
     conservative). CUDA tensors go through the hand-written kernel; CPU
     tensors through the plain version.
     """
+    check_split("closest_hit_grouped", split, GROUPED_SPLITS)
     ox = rays[0]
     if ox.device.type == "cpu":
         if stats is not None:
@@ -859,13 +878,16 @@ def segment_closest_hit_grouped(rays, cx, cy, cz, r, group_params, t_min,
         _block_array(name, "stats", stats, torch.int64, (2,), device)
     table = torch.stack([cx, cy, cz, r], dim=1).contiguous()
     bounds = torch.stack(list(group_params), dim=1).contiguous()
+    if split is None:
+        split = picked_grouped_split(ox.numel(), device.index)
     hit, t, sb = _outputs(shape, device)
     fn = kernels.entry("rtw_closest_hit_grouped")
     err = fn(act.data_ptr(), *(p.data_ptr() for p in rays),
              table.data_ptr(), bounds.data_ptr(), hit.data_ptr(),
              t.data_ptr(), sb.data_ptr(),
              None if stats is None else stats.data_ptr(), ox.numel(), n_g,
-             float(t_min), torch.cuda.current_stream(device).cuda_stream)
+             float(t_min), split,
+             torch.cuda.current_stream(device).cuda_stream)
     kernels.check(err, name)
     kernels.LAUNCHES["closest_hit_grouped"] += 1
     return hit, t, sb
