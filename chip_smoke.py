@@ -165,6 +165,16 @@ Phases (one JSON object per line on standard output):
                    counts read around it, then in the process beside the
                    default frame, bit-equal, at pools of 2^20 and 2^15
                    lanes.
+  scatter_path     the frame past the ledger cap -- huge scene, 1920x1080
+                   @ 512 spp, depth 50, 66.4 M tasks -- twice through
+                   ``render --engine auto`` (the float frame, the engine
+                   and the frame's seconds read where the CLI gets them,
+                   the launch counts around each run): ``auto`` must pick
+                   deposit="scatter", both renders must hash the same (the
+                   order-fixed flush), finite; epochs, graph or eager. Then
+                   the main path's 1200x800 @ 100 frame with the scatter
+                   deposit forced, against its ledger frame (which ``auto``
+                   keeps), each timed twice in turns.
   train_path       the training path at full width -- huge scene, 1200x800
                    camera, thin lens, default options with
                    intersect="pallas": the target by render.render (tiled
@@ -183,18 +193,35 @@ Phases (one JSON object per line on standard output):
                    of the pool and of the planar engine taken apart, the
                    batch's iteration budget and a flat-budget step, and the
                    pool's pixels and gradients against the planar engine's.
+  surrogate_path   the gradient surrogates (ops/silhouette.py,
+                   ops/branchprob.py) on the card: each term's value and
+                   gradient (centers, radii, ior) at the CPU tests' small
+                   scenes against the same call on the CPU; the JAX
+                   package's three finite-difference checks (boundary,
+                   secondary, RR flip) through the port at their
+                   configurations and tolerances; the JAX package's
+                   flagship full-surrogate train step (huge scene, 1200x800
+                   camera, 16384 px x 8 spp, depth 50 -> the AD pool,
+                   boundary 512, secondary 4 at vertex depths 0 and 1,
+                   rr_grad): one warm-up and three timed steps with the
+                   launch counts, kernel 3's device time (CUDA events
+                   around each launch) and the peak device memory, one
+                   step taken apart into the interior and each term, and
+                   one step under torch.profiler for the host's share.
   cli_fit          ``fit`` through the CLI on the small scene (200x112,
                    20 steps, a checkpoint written, reloaded and resumed),
                    then once more with --rr-terminate at the CLI's depth
-                   32, where --ad-engine auto is the regenerative AD pool.
+                   32, where --ad-engine auto is the regenerative AD pool,
+                   and once (3 steps) with --boundary-samples 8 --rr-grad.
 Then the ``kernels`` line (``launches`` from the main path's run for
 closest_hit, shade_regen and regen_only (once: the prologue), from the
 coherent path's full-width frames for closest_hit_list,
 closest_hit_sorted, closest_hit_mxu and shade_only, from the
 training path's for intersect, from the grouped path's three calls for
 closest_hit_grouped and from the full-width --fusion bounce frame for
-mega_bounce, ``launches_train_path`` beside it, every other number
-measured in this run), the card's name and power limit as
+mega_bounce, ``launches_train_path`` beside it, ``launches_scatter_path``
+for closest_hit, shade_regen and regen_only and ``launches_surrogate_path``
+for intersect and closest_hit, every other number measured in this run), the card's name and power limit as
 ``nvidia-smi`` gives them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -313,6 +340,18 @@ Tolerances, and why:
                 tolerance; scripts/torch_grad_fork.py). Both checks run on
                 seeded inputs (the scene as built; the training path's
                 seeded perturbation), so every run compares the same paths.
+  scatter       the scatter deposit's frame bit-equal between two renders
+                (its flush sums a pixel's values in an order fixed by the
+                inputs); against the ledger frame rtol 2e-4 / atol 2e-5,
+                the JAX package's own bound between its two deposits (a
+                pixel's tasks summed in flush order, not task order).
+  surrogates    on the card against the CPU, every gradient element
+                within 1e-3 of its leaf's largest |gradient| and the
+                value within rtol 1e-3 (CUDA's and the CPU's sin, cos,
+                sqrt, log differ by an ulp; the port against JAX on the
+                CPU is held to 1e-4); the FD checks at the JAX tests' own
+                tolerances (rtol 0.05-0.15, atol 9e-4 on near-zero
+                components).
   frames        the renderer's own rule (golden.compare_frames): at most
                 1% knife-edge pixels, the rest atol 3e-5 / rtol 1e-4
                 (atol 5e-4 against the JAX-made huge crop, whose XLA:CPU
@@ -347,7 +386,7 @@ import time
 
 PHASES = ("kernels", "grad_vs_plain", "frame_vs_plain", "frame_vs_golden",
           "main_path", "coherent_path", "grouped_path", "mega_path",
-          "train_path", "cli_fit")
+          "scatter_path", "train_path", "surrogate_path", "cli_fit")
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores and HBM bandwidth. The bounds below are stated against them.
@@ -413,6 +452,23 @@ TRAIN = dict(width=1200, height=800, target_spp=8, depth=16,
 GRAD = dict(width=240, height=160, spp=2, depth=8, rays=32768)
 AD_DEPTH = 50  # the regenerative AD pool's flagship depth (train_path)
 CLI_FIT = dict(width=200, height=112, steps=20)
+# The frame past the ledger cap: 1920x1080 @ 512 spp, 66.4 M tasks, whose
+# ledger would be ~805 MB at 32768 lanes (scatter_path).
+SCATTER = dict(scene="huge", width=1920, height=1080, spp=512, depth=50)
+# The surrogates on the card against the CPU (surrogate_path): the tests'
+# small scenes at this size; every gradient element within this share of
+# its leaf's largest |gradient| (CUDA's and the CPU's sin/cos/sqrt/log
+# differ by an ulp; kernel 3 is bit-equal with its plain version).
+SURROGATE_SMALL = dict(width=48, height=32)
+SURROGATE_CARD_SHARE = 1e-3
+# The full-surrogate train step of the JAX package's flagship
+# (docs/FIT_r05.json, "full_surrogate"): huge scene, 1200x800 camera,
+# 16384 pixels x 8 spp, depth 50 (-> the AD pool), every surrogate.
+SURROGATE_STEP = dict(width=1200, height=800, spp=8, depth=50,
+                      batch_pixels=16384, boundary_samples=512,
+                      secondary_samples=4, secondary_vertex_depths=2,
+                      rr_grad=True, warmup_steps=1, timed_steps=3,
+                      which=("albedo", "centers", "radii", "ior"))
 
 
 class Failed(Exception):
@@ -1049,17 +1105,23 @@ def kernels_phase(rt, torch, nvidia_smi: str):
 # --------------------------------------------------------------------- #
 
 @contextlib.contextmanager
-def recorded_calls(module, name: str):
-    """Record (args, kwargs) of every call of ``module.name`` while the
-    block runs: how a kernel's inputs are taken from inside an engine's
-    step, at the shapes the engine gives them."""
+def recorded_calls(module, name: str, synchronize=None):
+    """Record (args, kwargs, result, seconds) of every call of
+    ``module.name`` while the block runs (``synchronize`` is called before
+    the clock stops): how a kernel's inputs are taken from inside an
+    engine's step, at the shapes the engine gives them, and how a CLI
+    run's frame and engine are read."""
     calls = []
     fn = getattr(module, name)
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
-        calls.append((args, kwargs))
-        return fn(*args, **kwargs)
+        t0 = time.perf_counter()
+        res = fn(*args, **kwargs)
+        if synchronize is not None:
+            synchronize()
+        calls.append((args, kwargs, res, time.perf_counter() - t0))
+        return res
 
     setattr(module, name, wrapper)
     try:
@@ -1335,7 +1397,7 @@ def list_kernel_checks(rt, torch):
         with recorded_calls(seg, "segment_closest_hit_list") as calls:
             dual.dual_step(eng, state)
         require(len(calls) == 1, "one list-kernel call per dual iteration")
-        (rays, cx, cy, cz, r, counts, lists, t_min), kw = calls[0]
+        (rays, cx, cy, cz, r, counts, lists, t_min), kw = calls[0][:2]
         geom = (cx, cy, cz, r)
         rows, issue, table = kw["rows"], kw["active"].to(torch.int32), \
             kw["table"]
@@ -4019,6 +4081,519 @@ def cli_fit_phase(rt, torch, nvidia_smi: str):
     require(rc_rr == 0 and rr["pool_traces"] == CLI_FIT["steps"]
             and rr["launches"]["closest_hit"] > 0,
             f"fit --rr-terminate did not train through the pool: {rr}")
+    # the gradient surrogates through the CLI
+    sur_argv = (argv[:argv.index("--steps")] + ["--steps", "3"]
+                + argv[argv.index("--steps") + 2:argv.index("--checkpoint")]
+                + ["--boundary-samples", "8", "--rr-grad"])
+    sur_said = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sur_said):
+        rc_sur = cli.main(sur_argv)
+    sur = {"argv": sur_argv, "seconds": time.perf_counter() - t0,
+           "launches": dict(kernels.LAUNCHES),
+           "said": sur_said.getvalue().strip().splitlines()[-3:]}
+    emit({"phase": "cli_fit", "part": "surrogates", "card": nvidia_smi,
+          **sur})
+    require(rc_sur == 0 and sur["launches"]["intersect"] > 0,
+            f"fit with the surrogates: {sur}")
+
+
+# --------------------------------------------------------------------- #
+# scatter_path phase: the deposit of frames past the ledger cap
+# --------------------------------------------------------------------- #
+
+def frame_sha256(img) -> str:
+    import hashlib
+
+    return hashlib.sha256(img.detach().cpu().contiguous().numpy()
+                          .tobytes()).hexdigest()
+
+
+def scatter_cli_frame(rt, torch, run: int) -> dict:
+    """The SCATTER frame through ``render --engine auto`` once: its float
+    frame (read where the CLI gets it), the engine ``auto`` built, the
+    frame's seconds (render_wavefront, synchronised) and the launches."""
+    from raytracinginoneweekend_tpu_torch import cli, kernels
+    from raytracinginoneweekend_tpu_torch.ops import wavefront
+
+    w, h, spp, depth = (SCATTER[k] for k in ("width", "height", "spp",
+                                              "depth"))
+    out_png = os.path.join(kernels.BUILD_DIR, f"chip_smoke_scatter{run}.png")
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    if os.path.exists(out_png):
+        os.remove(out_png)
+    argv = ["render", "--scene", "huge", "--engine", "auto", "--width",
+            str(w), "--height", str(h), "--spp", str(spp), "--depth",
+            str(depth), "--stats", "--out", out_png]
+    err, said = io.StringIO(), io.StringIO()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_calls(wavefront, "build_engine") as engines, \
+            recorded_calls(wavefront, "render_wavefront",
+                           torch.cuda.synchronize) as frames, \
+            contextlib.redirect_stderr(err), \
+            contextlib.redirect_stdout(said):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    command_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    require(rc == 0, f"cli render (scatter frame) returned {rc}")
+    require(os.path.getsize(out_png) > 10000, "the PNG was not written")
+    require(len(engines) == 1 and len(frames) == 1,
+            f"{len(engines)} engines, {len(frames)} frames in one render")
+    eng = engines[0][2]
+    (img, st), frame_s = frames[0][2:]
+    stats = json.loads(err.getvalue().strip().splitlines()[-1])
+    return {"argv": argv, "img": img, "deposit": eng.deposit,
+            "ledger_bytes_would_be": 3 * 4 * eng.n_k * eng.lanes,
+            "graph": wavefront.epoch_graphable(eng),
+            "seconds_per_frame": frame_s, "command_seconds": command_s,
+            "iters": st["iters"], "epochs": st["iters"] // eng.flush_every,
+            "stats": stats, "launches": launches, "sha256": frame_sha256(img),
+            "lanes": eng.lanes, "tpp": eng.tpp}
+
+
+def scatter_path_phase(rt, torch, nvidia_smi: str):
+    from raytracinginoneweekend_tpu_torch import cli, kernels
+    from raytracinginoneweekend_tpu_torch.ops import wavefront
+
+    w, h, spp = (SCATTER[k] for k in ("width", "height", "spp"))
+    runs = [scatter_cli_frame(rt, torch, i) for i in (1, 2)]
+    first = runs[0]
+    img = first["img"]
+    for r in runs:
+        require(r["deposit"] == "scatter" and r["ledger_bytes_would_be"]
+                > wavefront.LEDGER_CAP_BYTES,
+                f"auto did not pick the scatter deposit past the cap: "
+                f"{r['deposit']}, {r['ledger_bytes_would_be']} bytes")
+        require_fused_launches(r["launches"], r["iters"],
+                               "the scatter frame")
+    require(bool(torch.isfinite(img).all())
+            and tuple(img.shape) == (w * h, 3), "the scatter frame")
+    same_hash = runs[0]["sha256"] == runs[1]["sha256"]
+
+    # the default frame forced onto the scatter deposit, against its
+    # ledger frame: parent order L, S, S, L, each timed alone
+    dev = torch.device("cuda")
+    mw, mh, mspp, mdepth = (MAIN[k] for k in ("width", "height", "spp",
+                                              "depth"))
+    scene = cli._build_scene("huge", 0, dev)
+    cam = cli._build_camera("cpu", mw, mh, dev)
+    main_frames, main_s, deposits = {}, {"ledger": [], "scatter": []}, {}
+    for dep in ("ledger", "scatter", "scatter", "ledger"):
+        with recorded_calls(wavefront, "build_engine") as engines:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = rt.render_wavefront(
+                scene, cam, rt.key_words(0), width=mw, height=mh, spp=mspp,
+                max_depth=mdepth, camera_mode="thinlens", options=rt.DEFAULT,
+                deposit=None if dep == "ledger" else "scatter", device=dev)
+            torch.cuda.synchronize()
+            main_s[dep].append(time.perf_counter() - t0)
+        deposits.setdefault(dep, engines[0][2].deposit)
+        main_frames.setdefault(dep, out)
+    require(deposits == {"ledger": "ledger", "scatter": "scatter"},
+            f"the default frame's deposits: {deposits}")
+    led, sca = main_frames["ledger"], main_frames["scatter"]
+    close = bool(torch.allclose(sca, led, rtol=2e-4, atol=2e-5))
+    emit({"phase": "scatter_path", "card": nvidia_smi, **SCATTER,
+          "camera_rays": w * h * spp,
+          "runs": [{k: v for k, v in r.items() if k != "img"}
+                   for r in runs],
+          "same_hash_both_renders": same_hash, "mean": float(img.mean()),
+          "default_frame": {
+              **MAIN, "seconds_per_frame": main_s,
+              "scatter_vs_ledger_max_abs": float((sca - led).abs().max()),
+              "scatter_vs_ledger_within_2e-4_2e-5": close,
+              "sha256": {k: frame_sha256(v)
+                         for k, v in main_frames.items()}}})
+    require(same_hash, "two renders of the scatter frame differ: "
+            f"{runs[0]['sha256']} against {runs[1]['sha256']}")
+    require(close, "the scatter deposit moved the default frame beyond "
+            "rtol 2e-4 / atol 2e-5 of its ledger frame")
+    return first["launches"]
+
+
+# --------------------------------------------------------------------- #
+# surrogate_path phase: the gradient surrogates on the card
+# --------------------------------------------------------------------- #
+
+def small_scene(rt, torch, name: str, dev):
+    """The surrogate tests' small scenes (tests/test_torch_silhouette.py,
+    tests/test_branchprob.py, tests/test_silhouette.py)."""
+    from raytracinginoneweekend_tpu_torch.models import scene as scenes
+
+    L, M, D = scenes.LAMBERT, scenes.METAL, scenes.DIELECTRIC
+    spec = {
+        "black_and_glass": ([[0.0, 0.0, -1.5], [0.6, 0.2, -2.5]],
+                            [0.5, 0.4], [L, D], [[0, 0, 0], [1, 1, 1]],
+                            [0, 0], [1.0, 1.5]),
+        "shadow_mix": ([[0.0, -100.5, -1.0], [0.0, 1.5, -1.0],
+                        [0.5, 0.0, -2.0], [-0.6, 0.1, -1.8]],
+                       [100.0, 0.4, 0.5, 0.45], [L, L, M, D],
+                       [[0.5, 0.5, 0.5], [0, 0, 0], [0.8, 0.7, 0.6],
+                        [1, 1, 1]], [0, 0, 0.3, 0], [1, 1, 1, 1.5]),
+        "black_sphere": ([[0.0, 0.0, -1.5]], [0.5], [L], [[0, 0, 0]], [0],
+                         [1.0]),
+        "floating_occluder": ([[0.0, -100.5, -1.0], [0.0, 1.5, -1.0]],
+                              [100.0, 0.4], [L, L],
+                              [[0.5, 0.5, 0.5], [0, 0, 0]], [0, 0], [1, 1]),
+        "lone_glass": ([[0.0, 0.0, -2.0]], [0.6], [D], [[1, 1, 1]], [0],
+                       [1.5]),
+    }[name]
+    c, r, mt, alb, fz, ior = spec
+    n = len(r)
+    return scenes.scene_from_numpy(c, r, list(range(n)), mt, alb, fz, ior,
+                                   device=dev)
+
+
+def surrogate_terms(rt, torch, dev) -> dict:
+    """Each surrogate's value and gradient (centers, radii, ior) on ``dev``
+    at the tests' small configurations, seeded."""
+    import numpy as np
+
+    from raytracinginoneweekend_tpu_torch.models import camera as cameras
+    from raytracinginoneweekend_tpu_torch.ops import branchprob, silhouette
+
+    w, h = SURROGATE_SMALL["width"], SURROGATE_SMALL["height"]
+    options = dataclasses.replace(rt.DEFAULT, intersect="pallas")
+    g = np.random.default_rng(0)
+    cot_img = torch.from_numpy(
+        g.normal(size=(w * h, 3)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(g.permutation(w * h)[:400].astype(np.int32)
+                           ).to(dev)
+    cot = torch.from_numpy(g.normal(size=(400, 3)).astype(np.float32)
+                           ).to(dev)
+    key = rt.key_words(5)
+    out = {}
+
+    def run(name, scene, fn):
+        leaves = {k: getattr(scene, k).clone().requires_grad_(True)
+                  for k in ("centers", "radii", "ior")}
+        value = fn(scene._replace(**leaves))
+        value.backward()
+        out[name] = {"value": float(value.detach()),
+                     **{k: (v.grad.detach().cpu() if v.grad is not None
+                            else torch.zeros(v.shape))
+                        for k, v in leaves.items()}}
+
+    cam_lens = cameras.make_camera((0, 0.3, 0.5), (0, 0, -1.5), (0, 1, 0),
+                                   w / h, 60.0, 0.1, 1.5, device=dev)
+    cam = cameras.make_camera((0, 0.3, 0.5), (0, 0, -1.5), (0, 1, 0),
+                              w / h, 60.0, 0.0, 1.5, device=dev)
+    run("boundary", small_scene(rt, torch, "black_and_glass", dev),
+        lambda s: silhouette.boundary_surrogate(
+            s, cam_lens, "thinlens", cot_img, w, h, key, 4, options,
+            n_angles=64))
+    mix = small_scene(rt, torch, "shadow_mix", dev)
+    for vd in (0, 1):
+        run(f"secondary_vd{vd}", mix,
+            lambda s, vd=vd: silhouette.secondary_boundary_surrogate(
+                s, cam, "pinhole", cot, ids, w, h, key, 5, options,
+                n_angles=8, n_spheres=2, vertex_depth=vd))
+        run(f"branchprob_vd{vd}", mix,
+            lambda s, vd=vd: branchprob.branch_probability_surrogate(
+                s, cam, "pinhole", cot, ids, w, h, key, 5, options,
+                vertex_depth=vd))
+    return out
+
+
+def surrogate_fd_checks(rt, torch, dev) -> list:
+    """The JAX package's finite-difference checks of the three terms
+    (tests/test_silhouette.py::test_boundary_grad_matches_finite_differences,
+    ::test_secondary_boundary_grad_matches_finite_differences,
+    tests/test_branchprob.py::test_rr_branch_flip_matches_finite_differences)
+    through the port, at their configurations and tolerances."""
+    from raytracinginoneweekend_tpu_torch import optim
+    from raytracinginoneweekend_tpu_torch.models import camera as cameras
+    from raytracinginoneweekend_tpu_torch.render import render_pixels_impl
+
+    options = dataclasses.replace(rt.DEFAULT, intersect="pallas")
+    results = []
+
+    def check(name, scene, cam, w, h, spp, depth, leaves, checks, eps,
+              surrogate, fd_keys=(3,)):
+        key = rt.key_words(3)
+        ids = torch.arange(w * h, dtype=torch.int32, device=dev)
+        base = render_pixels_impl(scene, cam, ids, key, width=w, height=h,
+                                  spp=spp, wave_spp=spp, max_depth=depth,
+                                  camera_mode="pinhole", options=options)
+        target = base - 0.5
+
+        def loss_of(params, on, k=key):
+            return optim.render_loss(
+                params, scene, cam, target, ids, k, width=w, height=h,
+                spp=spp, max_depth=depth, camera_mode="pinhole",
+                options=options, **(surrogate if on else {}))
+
+        params = optim.params_from_scene(scene, leaves)
+        loss_of(params, True).backward()
+        for leaf, idx, rtol, atol in checks:
+            fds = []
+            for kk in fd_keys:
+                with torch.no_grad():
+                    up = {k: v.detach().clone() for k, v in params.items()}
+                    dn = {k: v.detach().clone() for k, v in params.items()}
+                    up[leaf][idx] += eps
+                    dn[leaf][idx] -= eps
+                    k2 = rt.key_words(kk)
+                    fds.append(float((loss_of(up, False, k2)
+                                      - loss_of(dn, False, k2))
+                                     / (2 * eps)))
+            fd = sum(fds) / len(fds)
+            ad = float(params[leaf].grad[idx])
+            ok = (fd != 0.0 and abs(ad - fd) <= rtol * abs(fd)
+                  if rtol is not None else abs(ad - fd) < atol)
+            results.append({"test": name, "leaf": leaf, "index": list(idx),
+                            "ad": ad, "fd": fd, "fd_per_key": fds,
+                            "rtol": rtol, "atol": atol, "ok": ok})
+
+    w, h = 96, 72
+    pin = cameras.make_camera((0, 0, 0), (0, 0, -1), (0, 1, 0), w / h, 60.0,
+                              0.0, 1.0, device=dev)
+    check("test_silhouette.py::test_boundary_grad_matches_finite_"
+          "differences", small_scene(rt, torch, "black_sphere", dev), pin,
+          w, h, 64, 2, ("centers", "radii"),
+          [("centers", (0, 1), 0.12, None), ("centers", (0, 2), 5e-2, None),
+           ("radii", (0,), 5e-2, None)], 0.015,
+          {"boundary_samples": 2048})
+    check("test_silhouette.py::test_secondary_boundary_grad_matches_finite_"
+          "differences", small_scene(rt, torch, "floating_occluder", dev),
+          pin, w, h, 64, 2, ("centers", "radii"),
+          [("centers", (1, 1), 0.15, None), ("radii", (1,), 0.08, None),
+           ("centers", (1, 0), None, 9e-4), ("centers", (1, 2), None, 9e-4)],
+          0.02, {"secondary_samples": 64, "secondary_spheres": 1})
+    w, h = 64, 48
+    cam40 = cameras.make_camera((0, 0, 0), (0, 0, -1), (0, 1, 0), w / h,
+                                40.0, 0.0, 1.0, device=dev)
+    check("test_branchprob.py::test_rr_branch_flip_matches_finite_"
+          "differences", small_scene(rt, torch, "lone_glass", dev), cam40,
+          w, h, 64, 2, ("ior",), [("ior", (0,), 0.12, None)], 0.01,
+          {"rr_grad": True}, fd_keys=(3, 5, 7))
+    return results
+
+
+def surrogate_step_phases(rt, torch, inverse, optim, params, scene, cam,
+                          tb, ids, key, kw) -> dict:
+    """One batch's full-surrogate step taken apart: the interior (the AD
+    engine's forward and backward) and each surrogate's forward and
+    backward alone, each synchronised, with kernel 3's launches."""
+    from raytracinginoneweekend_tpu_torch import kernels
+
+    p = {k: v.detach().clone().requires_grad_(True)
+         for k, v in params.items()}
+    full = inverse.scene_with_params(scene, p)
+    out = {}
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    loss = optim.render_loss(p, scene, cam, tb, ids, key, **kw)
+    loss.backward()
+    torch.cuda.synchronize()
+    out["interior"] = {"seconds": time.perf_counter() - t0,
+                       "launches": kernels.launch_delta(
+                           before, kernels.LAUNCHES)}
+    with torch.no_grad():  # the cotangent the step hands the surrogates
+        rendered = inverse._render_batch(
+            full, cam, ids, key, width=kw["width"], height=kw["height"],
+            spp=kw["spp"], max_depth=kw["max_depth"],
+            camera_mode=kw["camera_mode"], options=kw["options"],
+            engine="auto")
+    diff = rendered - tb
+    cot = 2.0 * diff / diff.numel()
+    off = dict(boundary_samples=0, secondary_samples=0, rr_grad=False,
+               secondary_spheres=2, secondary_vertex_depths=2,
+               rr_grad_arms=2)
+    for name, on in (("boundary", {"boundary_samples": 512}),
+                     ("secondary", {"secondary_samples": 4}),
+                     ("rr_grad", {"rr_grad": True})):
+        for v in p.values():
+            v.grad = None
+        torch.cuda.synchronize()
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        value = inverse._attach_surrogates(
+            torch.zeros((), device=cot.device), cot, full, cam,
+            kw["camera_mode"], ids, key, width=kw["width"],
+            height=kw["height"], max_depth=kw["max_depth"],
+            options=kw["options"], **{**off, **on})
+        value.backward()
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     "launches": kernels.launch_delta(before,
+                                                      kernels.LAUNCHES)}
+    return out
+
+
+def device_busy(torch, run) -> dict:
+    """``run()`` once under torch.profiler, device activity only (the
+    host's operator events of an eager step take minutes to collect): the
+    device's busy seconds (the sum of its kernels' times) against the
+    wall, or "not measured" when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_all = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        busy += float(dev_us) * 1e-6
+    collect = time.perf_counter() - t_all - wall
+    if busy <= 0:
+        return {"wall_seconds_under_profiler": wall,
+                "profiler_collect_seconds": collect,
+                "device_time": "not measured: the profiler reported no "
+                               "device time"}
+    return {"wall_seconds_under_profiler": wall,
+            "profiler_collect_seconds": collect,
+            "device_busy_seconds": busy,
+            "host_share": max(0.0, 1.0 - busy / wall)}
+
+
+def surrogate_path_phase(rt, torch, nvidia_smi: str):
+    import statistics
+
+    from raytracinginoneweekend_tpu_torch import cli, kernels, optim
+    from raytracinginoneweekend_tpu_torch.optim import inverse
+
+    dev = torch.device("cuda")
+    seconds = {}
+    # 1. each term on the card against the same call on the CPU
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    card = surrogate_terms(rt, torch, dev)
+    terms_launches = dict(kernels.LAUNCHES)
+    seconds["terms_card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = surrogate_terms(rt, torch, torch.device("cpu"))
+    seconds["terms_cpu"] = time.perf_counter() - t0
+    term_cmp, pending = {}, []
+    for name, got in card.items():
+        want = host[name]
+        rec = {"value": got["value"], "value_cpu": want["value"]}
+        for leaf in ("centers", "radii", "ior"):
+            scale = float(want[leaf].abs().max())
+            err = float((got[leaf] - want[leaf]).abs().max())
+            rec[leaf] = {"max_abs_grad": scale, "max_abs_err": err}
+            pending.append((err <= SURROGATE_CARD_SHARE * scale,
+                            f"{name}: {leaf} gradient on the card off the "
+                            f"CPU's by {err} (largest {scale})"))
+        pending.append((abs(got["value"] - want["value"])
+                        <= 1e-3 * abs(want["value"]) + 1e-6,
+                        f"{name}: value {got['value']} on the card, "
+                        f"{want['value']} on the CPU"))
+        term_cmp[name] = rec
+    pending.append((all(float(card[n]["centers"].abs().max()) > 0
+                        for n in card), "a term gave no centers gradient"))
+    pending.append((terms_launches["intersect"] > 0,
+                    f"the terms did not launch kernel 3: {terms_launches}"))
+
+    # 2. the JAX package's finite-difference checks, through the port
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    fd = surrogate_fd_checks(rt, torch, dev)
+    fd_launches = dict(kernels.LAUNCHES)
+    seconds["fd_checks"] = time.perf_counter() - t0
+    pending.extend((r["ok"], f"FD check failed: {r}") for r in fd)
+
+    # 3. the flagship full-surrogate train step
+    t0 = time.perf_counter()
+    f = SURROGATE_STEP
+    w, h, depth = f["width"], f["height"], f["depth"]
+    options = dataclasses.replace(rt.DEFAULT, intersect="pallas")
+    scene = cli._build_scene("huge", 0, dev)
+    cam = cli._build_camera("cpu", w, h, dev)
+    target = rt.render_wavefront(scene, cam, rt.key_words(0), width=w,
+                                 height=h, spp=f["spp"], max_depth=depth,
+                                 camera_mode="thinlens", options=rt.DEFAULT,
+                                 device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    perturbed = scene
+    for name in ("albedo", "centers"):
+        leaf = getattr(scene, name)
+        noise = TRAIN["perturb"] * torch.randn(leaf.shape, generator=gen)
+        perturbed = perturbed._replace(**{name: leaf + noise.to(dev)})
+    params = optim.params_from_scene(perturbed, f["which"])
+    kw = dict(width=w, height=h, spp=f["spp"], max_depth=depth,
+              camera_mode="thinlens", options=options)
+    sur = dict(boundary_samples=f["boundary_samples"],
+               secondary_samples=f["secondary_samples"],
+               secondary_vertex_depths=f["secondary_vertex_depths"],
+               rr_grad=f["rr_grad"])
+    step = optim.make_train_step(inverse.make_adam(params, TRAIN["lr"]),
+                                 engine="auto", **kw, **sur)
+    seconds["step_setup_and_target"] = time.perf_counter() - t0
+
+    def batch(i):
+        bk, rk = inverse.step_keys(rt.key_words(7), i)
+        ids = inverse.draw_pixel_batch(bk, w * h, f["batch_pixels"], dev)
+        return target[ids.to(torch.int64)], ids, rk
+
+    n_steps = f["warmup_steps"] + f["timed_steps"]
+    step_s, losses = [], []
+    for i in range(n_steps):
+        tb, ids, rk = batch(i)
+        if i == f["warmup_steps"]:
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            timed = timed_entry(torch, "rtw_closest_hit_n3")
+            ix_ms = timed.__enter__()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(params, perturbed, cam, tb, ids, rk)))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    timed.__exit__(None, None, None)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    timed_s = step_s[f["warmup_steps"]:]
+    per_step = {k: v / f["timed_steps"] for k, v in launches.items() if v}
+    tb, ids, rk = batch(n_steps)
+    parts = surrogate_step_phases(rt, torch, inverse, optim, params,
+                                  perturbed, cam, tb, ids, rk,
+                                  dict(kw, engine="auto"))
+    busy = device_busy(torch, lambda: step(params, perturbed, cam, tb, ids,
+                                           rk))
+    if "device_busy_seconds" in busy:  # against the step without it
+        busy["host_share_of_median_step"] = max(
+            0.0, 1.0 - busy["device_busy_seconds"]
+            / statistics.median(timed_s))
+    seconds["step_part"] = time.perf_counter() - t0 - seconds[
+        "step_setup_and_target"]
+    emit({"phase": "surrogate_path", "card": nvidia_smi,
+          "phase_seconds": seconds,
+          "terms_card_vs_cpu": term_cmp, "terms_launches": terms_launches,
+          "fd_checks": fd, "fd_launches": fd_launches,
+          "step": {**f, "engine": "auto -> " + inverse.resolve_ad_engine(
+                       depth, options.rr_terminate),
+                   "rays_per_step": f["batch_pixels"] * f["spp"],
+                   "step_seconds": step_s,
+                   "step_seconds_median": statistics.median(timed_s),
+                   "losses": losses, "launches_per_step": per_step,
+                   "intersect_ms_per_step": sum(ix_ms) / f["timed_steps"],
+                   "intersect_launches_timed": len(ix_ms),
+                   "peak_bytes": peak, "phases": parts, "profile": busy}})
+    pending.append((launches["intersect"] > 0,
+                    "the full-surrogate step launched no kernel 3"))
+    pending.append((all(x == x and abs(x) != float("inf") for x in losses),
+                    f"non-finite loss: {losses}"))
+    pending.append((all(bool(torch.isfinite(p).all())
+                        for p in params.values()),
+                    "non-finite parameters after the steps"))
+    for cond, what in pending:
+        require(cond, what)
+    return launches
 
 
 # The full frame's mean against the 240x160 @ 8 spp frame's: two Monte-Carlo
@@ -4268,7 +4843,10 @@ def main(argv=None) -> int:
         "coherent_path": lambda: coherent_path_phase(rt, torch, nvidia_smi),
         "grouped_path": lambda: grouped_path_phase(rt, torch, nvidia_smi),
         "mega_path": lambda: mega_path_phase(rt, torch, nvidia_smi),
+        "scatter_path": lambda: scatter_path_phase(rt, torch, nvidia_smi),
         "train_path": lambda: train_path_phase(rt, torch, nvidia_smi),
+        "surrogate_path": lambda: surrogate_path_phase(rt, torch,
+                                                       nvidia_smi),
         "cli_fit": lambda: cli_fit_phase(rt, torch, nvidia_smi),
     }
     try:
@@ -4307,6 +4885,13 @@ def main(argv=None) -> int:
             k["launches"] = (train_launches if name == "intersect"
                              else launches)[name]
         k["launches_train_path"] = train_launches[name]
+        if name in ("closest_hit", "shade_regen", "regen_only"):
+            # the frame past the ledger cap (its own main path)
+            k["launches_scatter_path"] = out["scatter_path"][name]
+        if name in ("intersect", "closest_hit"):
+            # the full-surrogate step: kernel 3 in the probe traces and
+            # attached hops, kernel 1 in the AD pool
+            k["launches_surrogate_path"] = out["surrogate_path"][name]
         if k["launches"] <= 0:
             print(f"chip_smoke: FAILED: kernel {name} was launched on no "
                   "path", file=sys.stderr)

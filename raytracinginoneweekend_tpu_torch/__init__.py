@@ -9,8 +9,10 @@ a reader finds the counterpart.
 Carried so far -- the forward wavefront render with its coherent-ray
 variants (``ops.wavefront_dual.render_wavefront_dual``, and through
 ``TraceOptions`` the sorted and mxu closest-hit kernels, tile ownership
-and the unfused step), the tiled engine and the training path (``fit``
-with the planar and tiled AD engines):
+and the unfused step) and its scatter deposit for frames past the ledger
+cap, the tiled engine and the training path (``fit`` with the planar,
+tiled and regenerative-pool AD engines and the gradient surrogates,
+ops/silhouette.py and ops/branchprob.py):
   Scenes:      Scene, simple_scene_cuda, simple_scene_cpu, huge_scene,
                validate_scene, scene_from_numpy
   Cameras:     Camera, make_camera, reference_cuda_camera,

@@ -19,9 +19,14 @@ hand-written kernel), ``jnp`` (the plain version, what every preset
 names), or ``auto``, the default: the kernel on a CUDA device, the
 preset's own value elsewhere. That default is the one place where the
 same ``--compat`` gives other TraceOptions than the JAX package's CLI,
-which never sets the field (ROADMAP.md, Queue 3). ``serve``, ``--via``,
-``--adaptive``, the sharded engines and the gradient surrogates come with
-later slices of the port (ROADMAP.md).
+which never sets the field (ROADMAP.md, Queue 3). ``fit`` carries the
+gradient surrogates (``--boundary-samples``, ``--secondary-samples``,
+``--secondary-vertex-depths``, ``--rr-grad``, ``--rr-grad-arms``); on a
+CUDA device ``--intersect auto`` routes their probe traces through the
+intersect kernel. A frame whose task ledger would pass the engine's cap
+deposits by pixel by itself (no flag, as in the JAX CLI). ``serve``,
+``--via``, ``--adaptive`` and the sharded engines come with later slices
+of the port (ROADMAP.md).
 
 Examples:
   python -m raytracinginoneweekend_tpu_torch render --scene simple-cuda \
@@ -373,11 +378,15 @@ def main(argv=None) -> int:
     p.add_argument("--fit-spp", type=int, default=4)
     p.add_argument("--boundary-samples", type=int, default=0,
                    help="edge samples/sphere for silhouette gradients "
-                        "(not ported yet: only 0 is accepted)")
+                        "(0 = interior AD only; needed to optimize "
+                        "centers/radii through visibility changes)")
     p.add_argument("--secondary-samples", type=int, default=0,
                    help="silhouette angles/candidate for the one-bounce "
-                        "boundary term (not ported yet: only 0 is accepted)")
-    p.add_argument("--secondary-vertex-depths", type=int, default=1)
+                        "(shadow/rough-reflection) boundary term (0 = off)")
+    p.add_argument("--secondary-vertex-depths", type=int, default=1,
+                   help="path-vertex depths the secondary boundary term "
+                        "covers (1 = first hit only; n sums vertex "
+                        "depths 0..n-1)")
     p.add_argument("--ad-engine", default="auto",
                    choices=["auto", "wavefront", "planar", "tiled"],
                    help="reverse-mode engine: 'auto' = by depth (planar up "
@@ -387,9 +396,15 @@ def main(argv=None) -> int:
                         "'tiled' = the (N,3) engine, 'wavefront' = the "
                         "regenerative pool)")
     p.add_argument("--rr-grad", action="store_true",
-                   help="the dielectric Russian-roulette branch-flip "
-                        "gradient term (not ported yet: refused)")
-    p.add_argument("--rr-grad-arms", type=int, default=2)
+                   help="add the dielectric Russian-roulette branch-flip "
+                        "gradient term (needed for accurate ior "
+                        "gradients; ops/branchprob.py)")
+    p.add_argument("--rr-grad-arms", type=int, default=2,
+                   help="internal-RR reflection arms per refract chain "
+                        "in the delta-lobe term -- its cost-policy knob "
+                        "(each arm one more side chain of probe traces; "
+                        "needed only when internally-reflected content "
+                        "is visible)")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--checkpoint-every", type=int, default=25)

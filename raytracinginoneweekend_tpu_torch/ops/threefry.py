@@ -28,6 +28,8 @@ The "explicit generator" of this package is the pair of base-key words
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -115,3 +117,60 @@ def key_words(seed: int) -> tuple[int, int]:
     if not 0 <= seed <= MASK32:
         raise ValueError(f"seed {seed} outside [0, 2**32)")
     return 0, seed
+
+
+# ---------------------------------------------------------------------------
+# jax.random's own layouts (threefry_partitionable=True), for the gradient
+# surrogates (ops/silhouette.py, ops/branchprob.py), which draw through
+# jax.random.uniform / categorical rather than the raw counter contract.
+# ---------------------------------------------------------------------------
+
+F32_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def random_bits(key, shape, device) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (32-bit) -> u32 carriers of
+    ``shape``: the flat row-major index i of each element is hashed as the
+    counter (hi, lo) = (i >> 32, i & 0xFFFFFFFF) under the key, and the two
+    output words are XOR-ed (JAX's partitionable threefry layout)."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32(key[0], key[1], idx >> 32, idx & MASK32)
+    return (b0 ^ b1).reshape(shape)
+
+
+def _f32(x: float) -> float:
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def uniform(key, shape, device, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``, bit for
+    bit: the mantissa-fill float f in [0, 1), then
+    ``max(minval, f * (maxval - minval) + minval)`` in float32."""
+    f = uniform_from_bits(random_bits(key, shape, device))
+    lo = _f32(minval)
+    span = _f32(_f32(maxval) - lo)
+    return torch.clamp_min(f * span + lo, lo)
+
+
+def gumbel(key, shape, device) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` (the default "low" mode):
+    ``-log(-log(u))`` with u uniform on [tiny, 1). The logs are PyTorch's,
+    which may differ from XLA's by an ulp."""
+    u = uniform(key, shape, device, minval=F32_TINY, maxval=1.0)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key, logits: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1, shape=shape)``: the
+    Gumbel-max draw, argmax over the last axis of ``gumbel + logits``,
+    with the gumbel noise drawn over ``shape + (n_categories,)`` (the
+    batch dims of ``logits``, its last axis removed, broadcast to
+    ``shape``'s trailing dims) -> int64 indices of ``shape``. Ties go to
+    the first index, as ``jnp.argmax`` does."""
+    shape = tuple(shape)
+    noise = gumbel(key, shape + (logits.shape[-1],), logits.device)
+    lead = len(shape) - (logits.dim() - 1)
+    return torch.argmax(noise + logits.reshape(
+        (1,) * lead + tuple(logits.shape)), dim=-1)

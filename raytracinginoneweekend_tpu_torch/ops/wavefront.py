@@ -1,8 +1,8 @@
 """Regenerative persistent-wavefront renderer: the forward path.
 
 Counterpart of ``raytracinginoneweekend_tpu/ops/wavefront.py`` (one
-worker, ledger deposit). The engine keeps a persistent pool of P ray
-lanes: each iteration every dead lane re-seeds itself with its next
+worker; ledger and scatter deposits). The engine keeps a persistent pool
+of P ray lanes: each iteration every dead lane re-seeds itself with its next
 unconsumed (pixel, sample) camera ray, all lanes trace one bounce segment
 together, and terminating rays deposit into the framebuffer.
 
@@ -38,6 +38,10 @@ together, and terminating rays deposit into the framebuffer.
     written into their unique ledger cells; the frame-end fold to pixels
     is a reshape+sum (task id // tasks-per-pixel is a contiguous-run map),
     under tile ownership followed by the de-swizzle of the tile order.
+    A frame whose ledger would pass LEDGER_CAP_BYTES deposits by PIXEL
+    instead (``deposit="scatter"``, chosen by ``auto``): each flush adds
+    the pendings into a per-pixel buffer in a fixed order
+    (``scatter_flush``), so the frame is the same to the bit on every run.
 
 The loop is plain Python: ``while`` over epochs (``engine_epoch``: the
 iterations of one epoch, then the flush). The host reads the device once
@@ -58,7 +62,8 @@ this engine produces the same per-ray radiance as the JAX package's; only
 float rounding of individual operations and the framebuffer accumulation
 order differ.
 
-What the port does not carry raises NotImplementedError at the engine's
+What the port does not carry yet (``reserve_frac``, several workers, the
+other two ``resolve`` forms) raises NotImplementedError at the engine's
 entry (``_check_carried``).
 """
 
@@ -95,8 +100,7 @@ FLUSH_EVERY = 32   # inner iterations per epoch (pending->ledger cadence)
 N_SLOTS = 2        # pending slots per lane (task-done buffering)
 
 # Ledger cap: a frame's task count must fit 3 f32 ledger channels under
-# this budget (beyond it the JAX package falls back to pixel scatter-adds,
-# which the port does not carry yet).
+# this budget, else the engine deposits by pixel (deposit="scatter").
 LEDGER_CAP_BYTES = 512 << 20
 
 # Pool granularity in rows of 128 lanes: the JAX package's kernel block
@@ -118,7 +122,7 @@ def pool_lanes(pool_size: int, width: int, height: int, spp: int,
     return -(-p // (rows * LANES)) * (rows * LANES)
 
 
-def _check_carried(options: TraceOptions, n_workers: int, deposit,
+def _check_carried(options: TraceOptions, n_workers: int,
                    reserve_frac) -> None:
     """The JAX engine's own refusals, then -- by name -- what later slices
     of the port bring."""
@@ -143,8 +147,6 @@ def _check_carried(options: TraceOptions, n_workers: int, deposit,
               "does not carry -- the winner lookup is a direct index")
     if reserve_frac:
         later("reserve_frac", "Queue 1: ablation engines")
-    if deposit == "scatter":
-        later("deposit='scatter'", "Queue 1: ablation engines")
     if n_workers != 1:
         later("n_workers > 1", "Queue 1: multi-GPU")
 
@@ -215,6 +217,7 @@ class Engine(NamedTuple):
     n_tasks: int       # task ids run over [0, n_tasks) (padded under tile)
     tpp: int           # tasks per pixel
     n_k: int           # ledger rounds (max tasks per lane)
+    deposit: str       # "ledger" or "scatter"
     stride: int        # task-id step between a lane's consecutive tasks
     own_bl: int        # lanes per tile-ownership block (0 = strided)
     own_tb: int        # task ids per tile-ownership block
@@ -251,7 +254,7 @@ def build_engine(scene: Scene, cam: Camera, base_key, *, width: int,
                  graph: bool = True, device=None) -> Engine:
     """Validate a frame's configuration and prepare its Engine (arguments
     as ``wavefront_fb``)."""
-    _check_carried(options, n_workers, deposit, reserve_frac)
+    _check_carried(options, n_workers, reserve_frac)
     device = resolve_device(device)
     n_pixels = width * height
     task_samples = min(task_samples or TASK_SAMPLES, spp)
@@ -291,13 +294,11 @@ def build_engine(scene: Scene, cam: Camera, base_key, *, width: int,
         stride = p
         n_k = -(-n_tasks // p)
 
-    if deposit not in (None, "auto", "ledger"):
+    if deposit in (None, "auto"):
+        deposit = ("ledger" if 3 * 4 * n_k * p <= LEDGER_CAP_BYTES
+                   else "scatter")
+    if deposit not in ("ledger", "scatter"):
         raise ValueError(f"unknown deposit mode: {deposit!r}")
-    if 3 * 4 * n_k * p > LEDGER_CAP_BYTES:
-        raise NotImplementedError(
-            f"the task ledger of this frame ({3 * 4 * n_k * p} bytes) "
-            "exceeds LEDGER_CAP_BYTES and deposit='scatter' is not ported "
-            "yet (ROADMAP.md, Queue 1: ablation engines); render in passes")
     if options.hit_kernel == "sorted" and (p // LANES) % sorted_rows:
         raise ValueError(f"the pool's {p // LANES} rows of lanes do not "
                          f"divide into cull blocks of {sorted_rows} rows")
@@ -330,8 +331,9 @@ def build_engine(scene: Scene, cam: Camera, base_key, *, width: int,
     step_kw = {**shade_kw, **regen_kw}
     return Engine(
         device=device, lanes=p, n_slots=n_slots, n_tasks=n_tasks, tpp=tpp,
-        n_k=n_k, stride=stride, own_bl=own_bl, own_tb=own_tb, width=width,
-        height=height, flush_every=flush_every or FLUSH_EVERY,
+        n_k=n_k, deposit=deposit, stride=stride, own_bl=own_bl,
+        own_tb=own_tb, width=width, height=height,
+        flush_every=flush_every or FLUSH_EVERY,
         sphere_params=sphere_params, htable=htable,
         table=sphere_table(sphere_params),
         camvec=pack_camera(cam),
@@ -493,9 +495,13 @@ def engine_step(eng: Engine, state: tuple, sortstate=None) -> tuple:
 
 
 def fold_ledger(eng: Engine, ledger: torch.Tensor) -> torch.Tensor:
-    """(3, >= n_tasks) ledger indexed by task id -> (H*W, 3) pixel sums.
-    A pixel's tpp tasks are consecutive ids; under tile ownership the ids
-    run over the padded tile order, which is de-swizzled and cropped."""
+    """The deposit's cells -> (H*W, 3) pixel sums. A task ledger (3, >=
+    n_tasks) indexed by task id: a pixel's tpp tasks are consecutive ids;
+    under tile ownership the ids run over the padded tile order, which is
+    de-swizzled and cropped. A scatter deposit (3, H*W + dump) already
+    holds pixel sums: its dump columns are dropped."""
+    if eng.deposit == "scatter":
+        return ledger[:, :eng.width * eng.height].t().contiguous()
     per_vp = ledger[:, :eng.n_tasks].reshape(3, -1, eng.tpp).sum(dim=2)
     if eng.own_bl:
         tiles_x, tiles_y, n_vp = cull.virtual_grid(eng.width, eng.height)
@@ -508,13 +514,16 @@ def fold_ledger(eng: Engine, ledger: torch.Tensor) -> torch.Tensor:
 
 
 class Ledger(NamedTuple):
-    """A frame's task ledger: one cell per task id, plus one row of P dump
-    cells (cell n_tasks + lane) that free slots write a zero into, so the
-    flush is one unconditional indexed copy with unique indices: no
-    atomics, no device->host read."""
+    """A frame's deposit. Under ``deposit="ledger"`` the task ledger: one
+    cell per task id, plus one row of P dump cells (cell n_tasks + lane)
+    that free slots write a zero into, so the flush is one unconditional
+    indexed copy with unique indices: no atomics, no device->host read.
+    Under ``deposit="scatter"`` one cell per pixel plus one dump cell per
+    pending slot of the pool (columns H*W ...), where every value that
+    does not land on a pixel goes (``scatter_flush``)."""
 
-    cells: torch.Tensor   # (3, n_tasks + P) f32
-    dump: torch.Tensor    # (P,) i64: n_tasks + lane
+    cells: torch.Tensor   # (3, n_tasks + P), scatter (3, H*W + P*n_slots)
+    dump: object          # ledger: (P,) i64 n_tasks + lane; scatter: None
     block_end: object     # where each lane's own task sequence ends
 
 
@@ -525,23 +534,89 @@ def new_ledger(eng: Engine) -> Ledger:
                      // eng.own_tb + 1) * eng.own_tb
     else:
         block_end = n_tasks
+    if eng.deposit == "scatter":
+        return Ledger(torch.zeros((3, eng.width * eng.height
+                                   + p * eng.n_slots),
+                                  dtype=torch.float32, device=device),
+                      None, block_end)
     return Ledger(
         torch.zeros((3, n_tasks + p), dtype=torch.float32, device=device),
         torch.arange(n_tasks, n_tasks + p, dtype=torch.int64, device=device),
         block_end)
 
 
+def task_pixels(eng: Engine, task: torch.Tensor) -> torch.Tensor:
+    """Task ids (-1 = a free slot) -> pixel ids, H*W (off the image: the
+    scatter deposit's dump) for a free slot and, under tile ownership, for
+    a virtual pixel off the image. The counterpart of the JAX engine's
+    ``task_pixel`` with its validity folded in."""
+    n_pixels = eng.width * eng.height
+    vp = torch.div(task.clamp_min(0), eng.tpp, rounding_mode="floor")
+    ok = task >= 0
+    if eng.own_bl:
+        vp, valid = cull.tile_pixel(vp, eng.width, eng.height)
+        ok = ok & valid
+    return torch.where(ok, vp, torch.full_like(vp, n_pixels))
+
+
+def scatter_flush(eng: Engine, cells: torch.Tensor, pixel: torch.Tensor,
+                  rgb: torch.Tensor) -> None:
+    """Add values into pixel cells in an order fixed by the inputs alone
+    (in place). pixel: (N,) cell per value (H*W = off the image); rgb:
+    (3, N); cells: (3, H*W + N), the last N the dump.
+
+    A pixel's tasks are consecutive ids on neighbouring lanes, so one
+    flush brings a pixel up to tpp values; a float ``index_add_`` of them
+    would add in the order of the card's atomics, which changes the last
+    bits from run to run. Here the values are stably sorted by pixel (so a
+    pixel's run keeps the slot-major, lane order of the flush), each run
+    is summed by a pairwise tree over its positions (log2 tpp elementwise
+    passes), and only the run's head, one per pixel, is added to its
+    cell; every other value goes to a dump cell of its own (H*W + its
+    position), so no two adds meet on one address. Static shapes and no
+    read to the host: an epoch with this flush is captured as a CUDA graph
+    like the ledger's. With one task a pixel the cell gets 0 + x = x, the
+    ledger frame's value."""
+    n = pixel.shape[0]
+    dump = eng.width * eng.height
+    key, order = torch.sort(pixel.to(torch.int32), stable=True)
+    vals = rgb.index_select(1, order)
+    head = torch.ones(n, dtype=torch.bool, device=pixel.device)
+    head[1:] = key[1:] != key[:-1]
+    pos = torch.arange(n, device=pixel.device)
+    rank = pos - torch.cummax(torch.where(head, pos, 0), dim=0).values
+    s = 1
+    while s < eng.tpp:  # a pixel's run is at most tpp long
+        same = torch.zeros(n, dtype=torch.bool, device=pixel.device)
+        same[:n - s] = key[s:] == key[:n - s]
+        take = same & (rank % (2 * s) == 0)
+        nxt = torch.zeros_like(vals)
+        nxt[:, :n - s] = vals[:, s:]
+        vals = vals + torch.where(take, nxt, torch.zeros_like(nxt))
+        s *= 2
+    cells.index_add_(1, torch.where(head & (key < dump), key, dump + pos),
+                     vals)
+
+
 def flush(eng: Engine, ledger: Ledger, state: tuple) -> None:
-    """Drain every pending slot into the ledger; free the slots (in
-    place). A task finishes once, so its cell is written once and copy
-    equals the JAX package's add onto zero."""
-    for j in range(eng.n_slots):
-        pt, pr, pg, pb = state[N_BASE + 4 * j: N_BASE + 4 * (j + 1)]
-        pt_flat = pt.reshape(-1)
-        cell = torch.where(pt_flat >= 0, pt_flat.to(torch.int64),
-                           ledger.dump)
-        ledger.cells.index_copy_(1, cell, torch.stack(
-            [pr.reshape(-1), pg.reshape(-1), pb.reshape(-1)]))
+    """Drain every pending slot into the deposit; free the slots (in
+    place). Ledger: a task finishes once, so its cell is written once and
+    copy equals the JAX package's add onto zero. Scatter: the slots' values
+    are added by pixel (``scatter_flush``), slot-major, lane by lane."""
+    slots = [state[N_BASE + 4 * j: N_BASE + 4 * (j + 1)]
+             for j in range(eng.n_slots)]
+    if eng.deposit == "scatter":
+        pt = torch.cat([s[0].reshape(-1) for s in slots]).to(torch.int64)
+        rgb = torch.stack([torch.cat([s[c].reshape(-1) for s in slots])
+                           for c in (1, 2, 3)])
+        scatter_flush(eng, ledger.cells, task_pixels(eng, pt), rgb)
+    for pt, pr, pg, pb in slots:
+        if eng.deposit != "scatter":
+            pt_flat = pt.reshape(-1)
+            cell = torch.where(pt_flat >= 0, pt_flat.to(torch.int64),
+                               ledger.dump)
+            ledger.cells.index_copy_(1, cell, torch.stack(
+                [pr.reshape(-1), pg.reshape(-1), pb.reshape(-1)]))
         pt.fill_(-1)
         pr.zero_()
         pg.zero_()
@@ -635,8 +710,10 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *,
         multiple).
       task_samples, flush_every, pending_slots: the decomposition's
         constants (None = TASK_SAMPLES, FLUSH_EVERY, N_SLOTS).
-      n_workers, deposit, reserve_frac: accepted at their defaults only
-        (what the JAX package does with them is not ported yet).
+      deposit: None / "auto" (the ledger while 3*4*n_k*P bytes fit
+        LEDGER_CAP_BYTES, else "scatter"), "ledger" or "scatter".
+      n_workers, reserve_frac: accepted at their defaults only (what the
+        JAX package does with them is not ported yet).
       plain: run the kernels' plain PyTorch versions whatever the device
         -- the reference a frame of the kernels is held against.
       graph: on the card, replay every epoch after the first as a CUDA
@@ -657,12 +734,13 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *,
       * a finished task's (task id, rgb) moves to the lane's first FREE
         pending slot (N_SLOTS of them; a lane with every slot occupied
         idles until the epoch flush);
-      * once per EPOCH pendings are flushed into the ledger. THE CELL
-        INDEX IS THE TASK ID ITSELF. Strided: task id = k*P + lane.
-        Tile: task id = b*T_b + k*own_bl + lane % own_bl with b = lane //
-        own_bl and T_b = n_k*own_bl, so block b's cells are the range
-        [b*T_b, (b+1)*T_b). Either way every id has one owner and a task
-        finishes once, so every cell is written exactly once.
+      * once per EPOCH pendings are flushed into the deposit. In the
+        ledger THE CELL INDEX IS THE TASK ID ITSELF. Strided: task id =
+        k*P + lane. Tile: task id = b*T_b + k*own_bl + lane % own_bl with
+        b = lane // own_bl and T_b = n_k*own_bl, so block b's cells are the
+        range [b*T_b, (b+1)*T_b). Either way every id has one owner and a
+        task finishes once, so every cell is written exactly once. In the
+        scatter deposit (past the cap) the cell is the pixel.
     """
     eng = build_engine(scene, cam, base_key, **config)
     ledger = new_ledger(eng)

@@ -26,9 +26,13 @@ PyTorch's idiom where it differs from the JAX package's:
     for bit, and at the step level -- where ``pixel_ids`` and the key are
     arguments -- the two packages agree.
 
-Not carried yet (each raises ``NotImplementedError`` naming ROADMAP.md):
-the gradient surrogates (``boundary_samples``, ``secondary_samples``,
-``rr_grad``) and ``mesh`` (multi-GPU).
+The gradient surrogates are carried (``boundary_samples``,
+``secondary_samples`` with ``secondary_spheres`` /
+``secondary_vertex_depths``, ``rr_grad`` with ``rr_grad_arms``:
+ops/silhouette.py, ops/branchprob.py); each enters the loss as
+``s - s.detach()``, so the value is the plain loss and only the gradient
+changes. Not carried yet: ``mesh`` (multi-GPU), which raises
+``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -171,19 +175,10 @@ def _later(what: str, where: str):
                               f"{where})")
 
 
-def _check_carried(mesh, boundary_samples, secondary_samples, rr_grad):
+def _check_carried(mesh):
     if mesh is not None:
         _later("mesh= (multi-GPU inverse rendering)",
                "Queue 1 item 12: multi-GPU")
-    if boundary_samples:
-        _later("boundary_samples > 0 (the silhouette boundary term)",
-               "Queue 1 item 11: gradient surrogates")
-    if secondary_samples:
-        _later("secondary_samples > 0 (the one-bounce boundary term)",
-               "Queue 1 item 11: gradient surrogates")
-    if rr_grad:
-        _later("rr_grad=True (the Russian-roulette branch-flip term)",
-               "Queue 1 item 11: gradient surrogates")
 
 
 def _render_batch(full_scene, cam, pixel_ids, base_key, *, width, height,
@@ -217,6 +212,70 @@ def _render_batch(full_scene, cam, pixel_ids, base_key, *, width, height,
     return impl(full_scene, cam, pixel_ids, base_key, **kwargs)
 
 
+def _attach_surrogates(value, cot, full_scene, cam, camera_mode, pixel_ids,
+                       base_key, *, width, height, max_depth, options,
+                       boundary_samples, secondary_samples,
+                       secondary_spheres, secondary_vertex_depths, rr_grad,
+                       rr_grad_arms=2):
+    """Add the zero-valued surrogate terms whose GRADIENTS carry the
+    boundary (silhouette/shadow/rough-reflection) and delta-lobe (RR
+    branch-flip) contributions interior AD cannot see.
+
+    cot: (P, 3) detached d(value)/d(pixel) weights for pixel_ids. Each
+    surrogate enters as ``value + s - s.detach()`` (the JAX package's
+    order of operations), so the value is unchanged and only the gradient
+    is augmented. The key words of each term are the JAX package's:
+    ``fold_in(base, 0x51170)`` (boundary), ``fold_in(fold_in(base,
+    0x51171), TAG_EDGE2_DEPTH + b)`` (secondary at vertex depth b) and
+    ``fold_in(fold_in(base, 0x51172), TAG_RR_DEPTH + b)`` (rr_grad).
+    """
+    if boundary_samples:
+        from ..ops.silhouette import boundary_surrogate
+
+        # d(value)/dI for each batch pixel, scattered into a dense image
+        # so edge samples can look their pixel up (pixels outside the
+        # batch contribute nothing). pixel_ids must be unique.
+        cot_image = torch.zeros((width * height, 3), dtype=cot.dtype,
+                                device=cot.device)
+        cot_image.index_copy_(0, pixel_ids.to(torch.int64), cot)
+        sur = boundary_surrogate(
+            full_scene, cam, camera_mode, cot_image, width, height,
+            tf.fold_in_words(*base_key, 0x51170), max_depth, options,
+            n_angles=boundary_samples)
+        value = value + sur - sur.detach()
+    if secondary_samples:
+        from ..ops.silhouette import (TAG_EDGE2_DEPTH,
+                                      secondary_boundary_surrogate)
+
+        k2 = tf.fold_in_words(*base_key, 0x51171)
+        for b in range(secondary_vertex_depths):
+            if max_depth - 1 - b <= 0:
+                break  # no continuation budget left: the term is 0
+            sur2 = secondary_boundary_surrogate(
+                full_scene, cam, camera_mode, cot, pixel_ids, width,
+                height, tf.fold_in_words(*k2, TAG_EDGE2_DEPTH + b),
+                max_depth, options, n_angles=secondary_samples,
+                n_spheres=secondary_spheres, vertex_depth=b)
+            value = value + sur2 - sur2.detach()
+    if rr_grad:
+        from ..ops.branchprob import (TAG_RR_DEPTH,
+                                      branch_probability_surrogate)
+
+        # The grazing-entry gate (boundary_rim_frac) is never threaded
+        # here: it is an ablation of the JAX package's ownership study.
+        k3 = tf.fold_in_words(*base_key, 0x51172)
+        for b in range(max(secondary_vertex_depths, 1)):
+            if max_depth - 1 - b <= 0:
+                break
+            sur3 = branch_probability_surrogate(
+                full_scene, cam, camera_mode, cot, pixel_ids, width,
+                height, tf.fold_in_words(*k3, TAG_RR_DEPTH + b),
+                max_depth, options, vertex_depth=b,
+                chain_rr_arms=rr_grad_arms)
+            value = value + sur3 - sur3.detach()
+    return value
+
+
 def render_loss(params: dict, scene: Scene, cam: Camera, target_pixels,
                 pixel_ids, base_key, *, width: int, height: int, spp: int,
                 max_depth: int, camera_mode: str, options, mesh=None,
@@ -240,11 +299,21 @@ def render_loss(params: dict, scene: Scene, cam: Camera, target_pixels,
     "tiled" (the (N, 3) engine). Same RNG contract, radiance agrees to
     float32 reassociation.
 
-    The surrogate knobs (boundary_samples, secondary_samples, rr_grad) are
-    accepted at their off values only.
+    boundary_samples > 0 adds the edge-sampled silhouette boundary term
+    (ops/silhouette.boundary_surrogate, that many edge samples a sphere)
+    to the loss GRADIENT (the value is unchanged): interior AD alone
+    cannot move a silhouette. secondary_samples > 0 adds the ONE-BOUNCE
+    boundary term (shadow and rough-reflection edges seen from lambert /
+    fuzzy-metal path vertices; that many silhouette angles a candidate,
+    ``secondary_spheres`` candidates a vertex) at vertex depths 0 ..
+    ``secondary_vertex_depths`` - 1 (depths without continuation budget
+    are skipped). rr_grad=True adds the dielectric branch-flip and
+    direction-sweep term (ops/branchprob.py) at the same depths, with
+    ``rr_grad_arms`` internal-RR reflection arms a refract chain. On the
+    card the probe traces take the intersect kernel when
+    ``options.intersect == "pallas"``.
     """
-    del secondary_spheres, secondary_vertex_depths, rr_grad_arms
-    _check_carried(mesh, boundary_samples, secondary_samples, rr_grad)
+    _check_carried(mesh)
     full_scene = scene_with_params(scene, params)
     rendered = _render_batch(full_scene, cam, pixel_ids, base_key,
                              width=width, height=height, spp=spp,
@@ -252,7 +321,16 @@ def render_loss(params: dict, scene: Scene, cam: Camera, target_pixels,
                              options=options, engine=engine,
                              engine_opts=engine_opts)
     diff = rendered - target_pixels
-    return torch.mean(diff * diff)
+    loss = torch.mean(diff * diff)
+    cot = 2.0 * diff.detach() / diff.numel()
+    return _attach_surrogates(
+        loss, cot, full_scene, cam, camera_mode, pixel_ids, base_key,
+        width=width, height=height, max_depth=max_depth, options=options,
+        boundary_samples=boundary_samples,
+        secondary_samples=secondary_samples,
+        secondary_spheres=secondary_spheres,
+        secondary_vertex_depths=secondary_vertex_depths, rr_grad=rr_grad,
+        rr_grad_arms=rr_grad_arms)
 
 
 def render_pixels_vjp(params: dict, scene: Scene, cam: Camera, cotangent,
@@ -269,11 +347,11 @@ def render_pixels_vjp(params: dict, scene: Scene, cam: Camera, cotangent,
     For an ARBITRARY per-pixel cotangent u (P, 3) -- a one-hot u selects a
     single d(pixel)/d(param) row -- returns (grads, pixels): the gradient
     of sum(u * I) as a {name: tensor} dict and the rendered (P, 3) batch
-    (detached). No target/MSE is involved. All keyword knobs mean what
+    (detached). No target/MSE is involved; the surrogate terms are folded
+    in, weighted by the caller's cotangent. All keyword knobs mean what
     they mean in render_loss.
     """
-    del secondary_spheres, secondary_vertex_depths, rr_grad_arms
-    _check_carried(mesh, boundary_samples, secondary_samples, rr_grad)
+    _check_carried(mesh)
     full_scene = scene_with_params(scene, params)
     rendered = _render_batch(
         full_scene, cam, pixel_ids, base_key, width=width, height=height,
@@ -281,9 +359,17 @@ def render_pixels_vjp(params: dict, scene: Scene, cam: Camera, cotangent,
         options=options, engine=engine, engine_opts=engine_opts)
     cot = torch.as_tensor(cotangent, dtype=torch.float32,
                           device=rendered.device).detach()
+    value = _attach_surrogates(
+        torch.sum(rendered * cot), cot, full_scene, cam, camera_mode,
+        pixel_ids, base_key, width=width, height=height,
+        max_depth=max_depth, options=options,
+        boundary_samples=boundary_samples,
+        secondary_samples=secondary_samples,
+        secondary_spheres=secondary_spheres,
+        secondary_vertex_depths=secondary_vertex_depths, rr_grad=rr_grad,
+        rr_grad_arms=rr_grad_arms)
     names = list(params)
-    grads = torch.autograd.grad(torch.sum(rendered * cot),
-                                [params[k] for k in names])
+    grads = torch.autograd.grad(value, [params[k] for k in names])
     return dict(zip(names, grads)), rendered.detach()
 
 
@@ -304,7 +390,7 @@ def make_train_step(optimizer: torch.optim.Optimizer, *, width: int,
     loss comes back as a detached scalar tensor on the device; nothing is
     read to the host.
     """
-    _check_carried(mesh, boundary_samples, secondary_samples, rr_grad)
+    _check_carried(mesh)
 
     def step(params, scene, cam, target_pixels, pixel_ids, base_key):
         optimizer.zero_grad(set_to_none=True)

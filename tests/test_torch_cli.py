@@ -236,12 +236,17 @@ def test_fit_cpu_writes_a_checkpoint_and_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--boundary-samples", "4"], ["--secondary-samples", "2"],
-    ["--rr-grad"],
+    ["--boundary-samples", "4"],
+    ["--secondary-samples", "2", "--secondary-vertex-depths", "2"],
+    ["--rr-grad", "--rr-grad-arms", "1"],
 ], ids=["boundary", "secondary", "rr_grad"])
-def test_fit_refuses_what_is_not_ported(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pcli.main(["fit", *FIT_FLAGS, "--steps", "1", *flags])
+def test_fit_runs_the_gradient_surrogates(flags, capsys):
+    """fit's surrogate flags reach optim.fit: the run ends with the usual
+    report, and its losses are finite."""
+    assert pcli.main(["fit", *FIT_FLAGS, "--steps", "2", *flags]) == 0
+    said = capsys.readouterr().out
+    assert re.search(r"albedo: max abs err vs truth = \d+\.\d{5}", said)
+    assert re.search(r"loss: \d+\.\d{6} -> \d+\.\d{6}", said)
 
 
 @pytest.mark.parametrize("flags", [

@@ -295,3 +295,84 @@ def test_rr_terminate_update_qcap_and_stop_grad():
     for g_, w in zip(outs[True], jo):
         np.testing.assert_allclose(g_.detach().numpy(), np.asarray(w),
                                    rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# jax.random's own layouts (the gradient surrogates draw through them)
+# ---------------------------------------------------------------------------
+
+def _key_pair(seed, tag):
+    """The same key in both packages: fold_in(key(seed), tag)."""
+    jkey = jax.random.fold_in(jax.random.key(seed), tag)
+    return jkey, ptf.fold_in_words(*ptf.key_words(seed), tag)
+
+
+@pytest.mark.parametrize("shape", [(1,), (5, 1), (7, 3, 2), (4097,)])
+def test_jax_random_bits_and_uniform_bit_exact(shape):
+    """jax.random.bits / uniform under jax_threefry_partitionable: the bits
+    equal, so the uniforms equal (the same mantissa map)."""
+    jkey, pkey = _key_pair(3, 101)
+    np.testing.assert_array_equal(
+        _np_u32(ptf.random_bits(pkey, shape, "cpu")),
+        np.asarray(jax.random.bits(jkey, shape)))
+    got = ptf.uniform(pkey, shape, "cpu")
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jax.random.uniform(jkey, shape)))
+
+
+def test_jax_random_uniform_with_bounds():
+    """minval/maxval as jax.random.uniform applies them: bit-exact on the
+    gumbel sampler's [tiny, 1) (the only bounds the surrogates use besides
+    the default); on an arbitrary interval within one ulp, as XLA:CPU
+    contracts f * span + lo into a fused multiply-add."""
+    jkey, pkey = _key_pair(4, 7)
+    np.testing.assert_array_equal(
+        ptf.uniform(pkey, (64, 9), "cpu", minval=ptf.F32_TINY).numpy(),
+        np.asarray(jax.random.uniform(jkey, (64, 9),
+                                      minval=ptf.F32_TINY)))
+    got = ptf.uniform(pkey, (64, 9), "cpu", minval=-2.5, maxval=0.75)
+    want = np.asarray(jax.random.uniform(jkey, (64, 9), minval=-2.5,
+                                         maxval=0.75))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=np.spacing(np.float32(2.5)))
+    assert float(got.min()) >= -2.5 and float(got.max()) < 0.75
+
+
+def test_vmapped_fold_in_bit_exact():
+    """jax.vmap(jax.random.fold_in, (None, 0))(key, arange(n)): the
+    per-sample keys of the surrogates' probe paths."""
+    jkey, pkey = _key_pair(5, 102)
+    want = np.asarray(jax.random.key_data(jax.vmap(
+        jax.random.fold_in, (None, 0))(jkey, jnp.arange(300,
+                                                        dtype=jnp.int32))))
+    k0, k1 = ptf.fold_in_words(*pkey, torch.arange(300))
+    np.testing.assert_array_equal(_np_u32(k0), want[:, 0])
+    np.testing.assert_array_equal(_np_u32(k1), want[:, 1])
+
+
+def test_gumbel_close_and_categorical_picks_agree():
+    """gumbel = -log(-log(u)) with the same u; the logs are PyTorch's and
+    XLA's, so the noise agrees to a few ulps (atol 2e-6) and a categorical
+    pick can differ only on a near tie. The secondary surrogate's draw
+    shape (P, K) over S categories with -inf logits: the share of picks
+    that differ is stated, at most 1e-3 (measured: 0 of 40000)."""
+    jkey, pkey = _key_pair(6, 105)
+    np.testing.assert_allclose(
+        ptf.gumbel(pkey, (2000,), "cpu").numpy(),
+        np.asarray(jax.random.gumbel(jkey, (2000,))), rtol=0, atol=2e-6)
+    g = np.random.default_rng(0)
+    q = g.random((10000, 9)).astype(np.float32)
+    q[g.random(q.shape) < 0.3] = 0.0
+    q[:5] = 0.0  # rows without a candidate: flattened to uniform logits
+    logits = np.where(q > 0, np.log(np.maximum(q, 1e-30)), -np.inf)
+    logits = np.where(q.sum(1, keepdims=True) > 0, logits, 0.0)
+    logits = logits.astype(np.float32)
+    want = np.asarray(jax.random.categorical(
+        jkey, jnp.asarray(logits)[:, None, :], axis=-1, shape=(10000, 4)))
+    got = ptf.categorical(pkey, torch.from_numpy(logits)[:, None, :],
+                          (10000, 4)).numpy()
+    assert got.shape == want.shape == (10000, 4)
+    assert (got != want).mean() <= 1e-3, (got != want).sum()
+    picked = np.take_along_axis(q, got, axis=1)
+    assert (picked[5:] > 0).all()  # never a -inf category

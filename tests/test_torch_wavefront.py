@@ -208,7 +208,6 @@ UNPORTED = {
     "resolve_split": dict(options=rt.TraceOptions(resolve="split")),
     "resolve_f32": dict(options=rt.TraceOptions(resolve="f32")),
     "reserve_frac": dict(reserve_frac=0.1),
-    "deposit_scatter": dict(deposit="scatter"),
     "n_workers": dict(n_workers=2),
 }
 
@@ -423,11 +422,150 @@ def test_one_unfused_iteration_state_for_state():
     assert (np.asarray(want[13]) >= 2).any()  # rays were mid-path
 
 
+def _tiny_engine(**kw):
+    args = dict(width=8, height=8, spp=1, max_depth=2,
+                camera_mode="thinlens", options=rt.DEFAULT, device="cpu")
+    args.update(kw)
+    return pwave.build_engine(
+        pscene.simple_scene_cuda("cpu"),
+        pcamera.reference_cuda_camera(8, 8, "cpu"), rt.key_words(0), **args)
+
+
 def test_bad_deposit_and_ledger_cap():
+    """An unknown deposit is refused; a frame whose ledger would pass
+    LEDGER_CAP_BYTES deposits by pixel. The engine is only built: the
+    8192x8192 frame (67 M pixels, a 805 MB ledger at 32768 lanes) is not
+    rendered."""
     with pytest.raises(ValueError, match="deposit"):
         _tiny(deposit="heap")
-    with pytest.raises(NotImplementedError, match="LEDGER_CAP_BYTES"):
-        _tiny(width=8192, height=8192, spp=1)
+    eng = _tiny_engine(width=8192, height=8192, spp=1)
+    assert 3 * 4 * eng.n_k * eng.lanes > pwave.LEDGER_CAP_BYTES
+    assert eng.deposit == "scatter"
+    assert _tiny_engine().deposit == "ledger"
+    with pytest.raises(ValueError, match="deposit"):
+        _tiny_engine(deposit="heap")
+
+
+def test_deposit_scatter_renders_the_ledger_frame():
+    """deposit="scatter" asked for explicitly: with one task a pixel the
+    cell gets 0 + x, the ledger frame to the bit."""
+    got = _tiny(deposit="scatter").numpy()
+    assert np.isfinite(got).all() and got.max() > 0
+    np.testing.assert_array_equal(got, _tiny(deposit="ledger").numpy())
+
+
+def _jax_picks_scatter(cap, **frame):
+    """Whether the JAX engine deposits by pixel for this frame under a
+    ledger cap of ``cap`` bytes: its program then holds a scatter-add
+    (traced only, not compiled; one worker, no reserve -- the ledger
+    path has none)."""
+    old = jwave.LEDGER_CAP_BYTES
+    jwave.LEDGER_CAP_BYTES = cap
+    try:
+        jaxpr = jax.make_jaxpr(lambda: jwave.wavefront_fb(
+            jscene.simple_scene_cuda(), jcamera.reference_cuda_camera(8, 8),
+            jax.random.key(0), max_depth=2, camera_mode="thinlens",
+            **frame))()
+    finally:
+        jwave.LEDGER_CAP_BYTES = old
+    return "scatter-add" in str(jaxpr)
+
+
+@pytest.mark.parametrize("own", ["strided", "tile"])
+def test_auto_deposit_switches_where_jax_does(own, monkeypatch):
+    """"auto" picks the scatter deposit exactly past the cap, as the JAX
+    engine does: with the cap set to this frame's ledger bytes both
+    packages keep the ledger, one byte under it both scatter."""
+    frame = dict(width=40, height=24, spp=20, pool_size=2048)
+    eng = _tiny_engine(options=rt.TraceOptions(ownership=own), **frame)
+    need = 3 * 4 * eng.n_k * eng.lanes
+    for cap, want in ((need, "ledger"), (need - 1, "scatter")):
+        monkeypatch.setattr(pwave, "LEDGER_CAP_BYTES", cap)
+        got = _tiny_engine(options=rt.TraceOptions(ownership=own),
+                           **frame).deposit
+        assert got == want, (cap, got)
+        assert _jax_picks_scatter(
+            cap, options=jconfig.TraceOptions(ownership=own),
+            **frame) == (want == "scatter"), cap
+
+
+@functools.lru_cache(maxsize=None)
+def _scatter_frames(own, task_samples):
+    """The huge crop with every deposit: port scatter, port ledger, JAX
+    scatter. task_samples < spp puts several tasks on one pixel."""
+    args = VARIANT_FRAMES["huge"]
+    changes = (("ownership", own),)
+    kw = dict(pool_size=2048, changes=changes, task_samples=task_samples)
+    port_s = _render_port(*args, deposit="scatter", **kw)
+    port_l = _render_port(*args, deposit="ledger", **kw)
+    jax_s = np.asarray(jwave.render_wavefront(
+        SCENES[args[0]][0](), CAMERAS[args[1]][0](args[4], args[5]),
+        jax.random.key(0), width=args[4], height=args[5], spp=args[6],
+        max_depth=args[7], camera_mode=args[3],
+        options=_options(jconfig, args[2], ownership=own), pool_size=2048,
+        task_samples=task_samples, deposit="scatter"))
+    return port_s, port_l, jax_s
+
+
+@pytest.mark.parametrize("task_samples", [4, 1], ids=["tpp1", "tpp4"])
+@pytest.mark.parametrize("own", ["strided", "tile"])
+def test_scatter_frame_matches_ledger_and_jax(own, task_samples):
+    """The scatter deposit against the port's ledger frame: bit-equal with
+    one task a pixel (spp <= task samples), else within the JAX package's
+    own deposit bound (rtol 2e-4, atol 2e-5: a pixel's tasks summed in
+    flush order, not task order). Against the JAX package's scatter frame:
+    the frame rule of the other frames here (knife-edge pixels; atol 5e-4
+    on the huge scene)."""
+    port_s, port_l, jax_s = _scatter_frames(own, task_samples)
+    assert np.isfinite(port_s).all() and port_s.max() > 0.05
+    if task_samples >= VARIANT_FRAMES["huge"][6]:
+        np.testing.assert_array_equal(port_s, port_l)
+    else:
+        np.testing.assert_allclose(port_s, port_l, rtol=2e-4, atol=2e-5)
+    cmp = golden.compare_frames(port_s, jax_s, atol=5e-4)
+    assert cmp["ok"], cmp
+
+
+def _pairwise(vals):
+    """float32 pairwise sum: neighbours first, then pairs of pairs."""
+    vals = list(vals)
+    while len(vals) > 1:
+        vals = [vals[i] + vals[i + 1] if i + 1 < len(vals) else vals[i]
+                for i in range(0, len(vals), 2)]
+    return vals[0]
+
+
+def test_scatter_flush_sums_in_a_fixed_order():
+    """scatter_flush on values that collide: each pixel's run, in the
+    order the values came in (the sort is stable), is summed by a pairwise
+    tree -- to the bit the float32 tree here -- and added onto its cell;
+    free slots go to the dump. Run twice, the cells are equal."""
+    eng = _tiny_engine(spp=80, task_samples=16)  # tpp = 5
+    g = np.random.default_rng(0)
+    n = 4096
+    pix = g.integers(0, 64, n)
+    pix[g.random(n) < 0.3] = 64  # free slots -> the dump
+    runs = {}
+    keep = []
+    for i, p_ in enumerate(pix.tolist()):  # a run is at most tpp long
+        if p_ == 64 or len(runs.setdefault(p_, [])) < eng.tpp:
+            keep.append(i)
+            if p_ != 64:
+                runs[p_].append(i)
+    rgb = g.random((3, n), dtype=np.float32)
+    base = g.random((3, 64 + len(keep)), dtype=np.float32)
+    cells = torch.from_numpy(base.copy())
+    pwave.scatter_flush(eng, cells, torch.from_numpy(pix[keep]),
+                        torch.from_numpy(rgb[:, keep].copy()))
+    want = base.copy()
+    for p_, idx in runs.items():
+        for c in range(3):
+            want[c, p_] = base[c, p_] + _pairwise(rgb[c, idx])
+    np.testing.assert_array_equal(cells[:, :64].numpy(), want[:, :64])
+    again = torch.from_numpy(base.copy())
+    pwave.scatter_flush(eng, again, torch.from_numpy(pix[keep]),
+                        torch.from_numpy(rgb[:, keep].copy()))
+    assert torch.equal(again[:, :64], cells[:, :64])
 
 
 def test_device_none_means_cuda_and_raises_without_one():
