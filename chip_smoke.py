@@ -213,6 +213,38 @@ Phases (one JSON object per line on standard output):
                    then once more with --rr-terminate at the CLI's depth
                    32, where --ad-engine auto is the regenerative AD pool,
                    and once (3 steps) with --boundary-samples 8 --rr-grad.
+  adaptive_path    ``render --adaptive`` (adaptive.py, the planar engine:
+                   kernel 1 on every lane of every bounce) at the main
+                   path's full width (huge, 1200x800, spp_base 100, depth
+                   50, thin lens), once through the CLI and once in this
+                   process: stats (rays_stage1 96,000,000, rays_stage2
+                   48,000,000, avg_spp 150), seconds, peak device memory,
+                   kernel 1's launches (50 x 4, nothing else) and device
+                   time (CUDA events around each launch), a finite image
+                   and the CLI's PPM equal to the in-process frame's; at
+                   240x160, spp_base 8, depth 12 the frame with kernel 1
+                   against the frame with its plain version (the frame
+                   rule) and the overlap of their tier sets; the
+                   equal-budget grid of scripts/bench_adaptive.py (64x36,
+                   two configs, 6 keys, a 512-spp truth) with each MSE
+                   ratio held to docs/ADAPTIVE_r04.json's within 1%
+                   relative.
+  serve_path       the render server (serve.py) as a subprocess on the
+                   card, logging to a file: socket mode 0600, ping (proto
+                   1, device cuda), the main frame three times (request
+                   seconds, reserved memory after each, which may not grow
+                   by more than 5%; the PPM equal to the in-process
+                   frame's, the launches counted by the server), the same
+                   frame with adaptive on (its PPM equal to the in-process
+                   adaptive frame's), a bench of 2 iterations, a 3-step fit
+                   (simple-cuda, 200x112, depth 8, 1024 px x 2 spp), a bad
+                   request (an error, the server still answering), render
+                   --via from another process, shutdown (exit 0 within
+                   30 s, the socket gone); beside it a fresh render
+                   process of the main frame (what the server saves),
+                   render --profile of the 240x160 frame (a trace that
+                   names closest_hit_kernel and shade_regen_kernel) and
+                   whether the native image codec built.
 Then the ``kernels`` line (``launches`` from the main path's run for
 closest_hit, shade_regen and regen_only (once: the prologue), from the
 coherent path's full-width frames for closest_hit_list,
@@ -220,8 +252,11 @@ closest_hit_sorted, closest_hit_mxu and shade_only, from the
 training path's for intersect, from the grouped path's three calls for
 closest_hit_grouped and from the full-width --fusion bounce frame for
 mega_bounce, ``launches_train_path`` beside it, ``launches_scatter_path``
-for closest_hit, shade_regen and regen_only and ``launches_surrogate_path``
-for intersect and closest_hit, every other number measured in this run), the card's name and power limit as
+for closest_hit, shade_regen and regen_only, ``launches_surrogate_path``
+for intersect and closest_hit, ``launches_adaptive_path`` for closest_hit
+and ``launches_serve_path`` (one served main frame, counted by the server)
+for closest_hit, shade_regen and regen_only, every other number measured
+in this run), the card's name and power limit as
 ``nvidia-smi`` gives them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -352,6 +387,13 @@ Tolerances, and why:
                 CPU is held to 1e-4); the FD checks at the JAX tests' own
                 tolerances (rtol 0.05-0.15, atol 9e-4 on near-zero
                 components).
+  adaptive      the frame with kernel 1 against the frame with its plain
+                version: the frame rule (kernel 1 is bit-equal with its
+                plain version, so the rankings agree); served and CLI PPMs
+                equal to the in-process frame's to the byte (the same
+                computation); the equal-budget MSE ratios within 1%
+                relative of the CPU record (an estimator property: the
+                RNG contract is the JAX package's).
   frames        the renderer's own rule (golden.compare_frames): at most
                 1% knife-edge pixels, the rest atol 3e-5 / rtol 1e-4
                 (atol 5e-4 against the JAX-made huge crop, whose XLA:CPU
@@ -386,7 +428,8 @@ import time
 
 PHASES = ("kernels", "grad_vs_plain", "frame_vs_plain", "frame_vs_golden",
           "main_path", "coherent_path", "grouped_path", "mega_path",
-          "scatter_path", "train_path", "surrogate_path", "cli_fit")
+          "scatter_path", "train_path", "surrogate_path", "cli_fit",
+          "adaptive_path", "serve_path")
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores and HBM bandwidth. The bounds below are stated against them.
@@ -4596,6 +4639,653 @@ def surrogate_path_phase(rt, torch, nvidia_smi: str):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# adaptive_path phase: render --adaptive on the planar engine
+# --------------------------------------------------------------------- #
+
+# The equal-budget grid of scripts/bench_adaptive.py, whose CPU record is
+# docs/ADAPTIVE_r04.json: 64x36, two configs, 6 keys, a 512-spp truth,
+# spp_base 8, {uniform, adaptive} x {iid, stratified}. Its MSE ratios are a
+# property of the estimator and the port's RNG contract is the JAX
+# package's, so each ratio is held to the record within this share.
+ADAPTIVE_GRID = dict(width=64, height=36, keys=6, truth_spp=512,
+                     spp_base=8)
+ADAPTIVE_GRID_REL = 0.01
+ADAPTIVE_ARMS = ("uniform_iid", "uniform_stratified", "adaptive_iid",
+                 "adaptive_stratified")
+
+
+def adaptive_expected_stats(width, height, spp) -> dict:
+    """The stats the JAX package's render_adaptive reports for a whole
+    frame with the default tiers (its arithmetic, independent of the
+    port's)."""
+    p = width * height
+    tiers = [[int(p * 0.0625), 4 * spp], [int(p * 0.25), spp]]
+    extra = sum(n * e for n, e in tiers)
+    return {"spp_base": spp, "tiers": tiers, "rays_stage1": p * spp,
+            "rays_stage2": extra, "avg_spp": (p * spp + extra) / p}
+
+
+def adaptive_in_process(rt, torch, *, width, height, spp, depth,
+                        plain=False):
+    """render_adaptive on the huge scene in this process (thin lens,
+    default options) -> its frame, stats, seconds, peak device memory, the
+    launches, kernel 1's device ms summed over its launches, and the
+    stage-1 ranking. ``plain`` swaps kernel 1 for its plain version (on
+    the card's tensors) inside the planar engine."""
+    from raytracinginoneweekend_tpu_torch import adaptive, cli, kernels
+    from raytracinginoneweekend_tpu_torch.ops import (cuda_segment,
+                                                      integrate_planar)
+
+    dev = torch.device("cuda")
+    scene = cli._build_scene("huge", 0, dev)
+    cam = cli._build_camera("cpu", width, height, dev)
+    hit = integrate_planar.segment_closest_hit
+    if plain:
+        integrate_planar.segment_closest_hit = \
+            cuda_segment.segment_closest_hit_reference
+    try:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with recorded_calls(adaptive, "noise_order") as orders, \
+                timed_entry(torch, "rtw_closest_hit") as ms:
+            t0 = time.perf_counter()
+            img, stats = adaptive.render_adaptive(
+                scene, cam, rt.key_words(0), width=width, height=height,
+                spp_base=spp, max_depth=depth, camera_mode="thinlens",
+                options=cli._options("default", device=dev),
+                return_stats=True)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        integrate_planar.segment_closest_hit = hit
+    return {"img": img.reshape(height, width, 3), "stats": stats,
+            "seconds": seconds,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": dict(kernels.LAUNCHES),
+            "closest_hit_ms": sum(ms), "closest_hit_timed": len(ms),
+            "order": orders[0][2]}
+
+
+@contextlib.contextmanager
+def kept_calls(torch, module, name: str, keep):
+    """Record (call index, args, result) of the calls of ``module.name``
+    whose index (from 0) is in ``keep``, every tensor cloned as the call
+    saw it and returned it; the other calls pass through unrecorded (a
+    whole adaptive frame's kernel-1 inputs would not fit on the card)."""
+    kept, count = [], [0]
+    fn = getattr(module, name)
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, (tuple, list)):
+            return type(x)(clone(v) for v in x)
+        return x
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        i = count[0]
+        count[0] += 1
+        saw = clone(args) if i in keep else None
+        res = fn(*args, **kwargs)
+        if saw is not None:
+            kept.append((i, saw, kwargs, clone(res)))
+        return res
+
+    setattr(module, name, wrapper)
+    try:
+        yield kept
+    finally:
+        setattr(module, name, fn)
+
+
+def kept_against_plain(torch, kept, label) -> dict:
+    """Each kept closest_hit call of the planar engine (``kept_calls``)
+    against segment_closest_hit_reference on the same card tensors, to
+    the bit on every lane -> {label[i]: {lanes, hits, bit_diff, ...}}."""
+    from raytracinginoneweekend_tpu_torch.closest_hit_checks import bit_diff
+    from raytracinginoneweekend_tpu_torch.ops import cuda_segment as seg
+
+    out = {}
+    for i, args, kwargs, res in kept:
+        require(kwargs.get("active") is None and len(args) == 6,
+                "the planar engine's closest_hit call changed its form")
+        t0 = time.perf_counter()
+        want = seg.segment_closest_hit_reference(*args)
+        torch.cuda.synchronize()
+        diff = bit_diff(res, want)
+        out[label[i]] = {"call": i, "lanes": int(args[0][0].numel()),
+                         "rows": int(args[0][0].shape[0]),
+                         "hits": int((res[0] > 0).sum()), **diff,
+                         "max_abs_err": float(
+                             (res[1] - want[1]).abs().max()),
+                         "plain_seconds": time.perf_counter() - t0}
+        require(not any(diff.values()), f"closest_hit at the adaptive "
+                f"frame's {label[i]} ({args[0][0].numel()} lanes) is not "
+                f"bit-equal with its plain version: {diff}")
+    return out
+
+
+def adaptive_cli(torch, out_ppm: str, *, width, height, spp, depth,
+                 keep=()):
+    """``render --adaptive`` of the huge scene through the CLI in this
+    process -> (the stats line, launches, seconds of the command, the
+    kernel-1 calls of the planar engine kept by index, ``kept_calls``)."""
+    from raytracinginoneweekend_tpu_torch import cli, kernels
+    from raytracinginoneweekend_tpu_torch.ops import integrate_planar
+
+    argv = ["render", "--adaptive", "--scene", "huge", "--width",
+            str(width), "--height", str(height), "--spp", str(spp),
+            "--depth", str(depth), "--out", out_ppm]
+    err, said = io.StringIO(), io.StringIO()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(said), \
+            kept_calls(torch, integrate_planar, "segment_closest_hit",
+                       set(keep)) as kept:
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    require(rc == 0, f"{argv} returned {rc}")
+    lines = [ln for ln in err.getvalue().splitlines()
+             if ln.startswith('{"adaptive"')]
+    require(len(lines) == 1, f"render --adaptive printed no stats line: "
+            f"{err.getvalue()[-2000:]}")
+    return (json.loads(lines[0])["adaptive"], dict(kernels.LAUNCHES),
+            seconds, kept)
+
+
+def tier_sets(order, tiers) -> list:
+    out, start = [], 0
+    for n, _e in tiers:
+        out.append(set(order[start:start + n].tolist()))
+        start += n
+    return out
+
+
+def adaptive_grid(rt, torch, dev) -> dict:
+    """scripts/bench_adaptive.py's equal-budget grid through the port on
+    ``dev`` -> its rows, in the record's layout (ratios unrounded)."""
+    import numpy as np
+    from raytracinginoneweekend_tpu_torch.adaptive import render_adaptive
+    from raytracinginoneweekend_tpu_torch.ops.integrate_planar import (
+        render_pixels_planar)
+
+    g = ADAPTIVE_GRID
+    w, h, spp = g["width"], g["height"], g["spp_base"]
+    strat = dataclasses.replace(rt.DEFAULT, sampling="stratified")
+    wide = rt.make_camera((-4, 3.2, 5), (0, 1, 0), (0, 1, 0), w / h, 42.0,
+                          0.5, float(np.linalg.norm((-4, 2.2, 5))),
+                          device=dev)
+    ids = torch.arange(w * h, dtype=torch.int32, device=dev)
+    rows = []
+    for label, scene, cam, depth in (
+            ("simple/thinlens-wide (aperture .5) d6",
+             rt.simple_scene_cuda(dev), wide, 6),
+            ("huge/thinlens cover d8", rt.huge_scene(0, dev),
+             rt.reference_cpu_camera(w, h, dev), 8)):
+        kw = dict(width=w, height=h, max_depth=depth,
+                  camera_mode="thinlens")
+        with torch.no_grad():
+            truth = render_pixels_planar(scene, cam, ids, rt.key_words(999),
+                                         spp=g["truth_spp"],
+                                         options=rt.DEFAULT, **kw)
+            mses = {k: [] for k in ADAPTIVE_ARMS}
+            for k in range(g["keys"]):
+                key = rt.key_words(10 + k)
+                img_ad, stats = render_adaptive(
+                    scene, cam, key, spp_base=spp, return_stats=True,
+                    options=rt.DEFAULT, **kw)
+                img_ast = render_adaptive(scene, cam, key, spp_base=spp,
+                                          options=strat, **kw)
+                spp_match = int(np.ceil(stats["avg_spp"]))
+                img_un = render_pixels_planar(scene, cam, ids, key,
+                                              spp=spp_match,
+                                              options=rt.DEFAULT, **kw)
+                img_ust = render_pixels_planar(scene, cam, ids, key,
+                                               spp=spp_match, options=strat,
+                                               **kw)
+                for name, img in zip(ADAPTIVE_ARMS,
+                                     (img_un, img_ust, img_ad, img_ast)):
+                    mses[name].append(float(((img - truth) ** 2).mean()))
+        base = float(np.mean(mses["uniform_iid"]))
+        rows.append({"config": label, "avg_spp_adaptive": stats["avg_spp"],
+                     "spp_uniform": spp_match,
+                     "mse": {k: float(np.mean(v)) for k, v in mses.items()},
+                     "mse_ratio_vs_uniform_iid": {
+                         k: float(np.mean(v)) / base
+                         for k, v in mses.items()}})
+    return {"rows": rows}
+
+
+def adaptive_grid_against_record(grid: dict) -> dict:
+    """Each config's MSE ratios beside docs/ADAPTIVE_r04.json's (the
+    record rounds them to 4 decimals) -> {config: {arm: (ours, record,
+    relative difference)}}."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "docs", "ADAPTIVE_r04.json")) as f:
+        rec = {r["config"]: r for r in json.load(f)["rows"]}
+    out = {}
+    for row in grid["rows"]:
+        want = rec[row["config"]]["mse_ratio_vs_uniform_iid"]
+        out[row["config"]] = {
+            arm: (got, want[arm], abs(got - want[arm]) / want[arm])
+            for arm, got in row["mse_ratio_vs_uniform_iid"].items()}
+    return out
+
+
+def planar_tier_breakdown(rt, torch) -> dict:
+    """Where the adaptive frame's time goes: its first stage-2 tier alone
+    (60,000 pixels x 400 spp at full width: 24 M lanes through the planar
+    engine, 50 bounces) under torch.profiler, device activity only ->
+    wall, device busy, kernel 1's share, the top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+    from raytracinginoneweekend_tpu_torch import cli
+    from raytracinginoneweekend_tpu_torch.ops.integrate_planar import (
+        render_pixels_planar)
+
+    dev = torch.device("cuda")
+    w, h, spp, depth = (MAIN[k] for k in ("width", "height", "spp",
+                                          "depth"))
+    scene = cli._build_scene("huge", 0, dev)
+    cam = cli._build_camera("cpu", w, h, dev)
+    ids = torch.arange(int(w * h * 0.0625), dtype=torch.int32, device=dev)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_pixels_planar(scene, cam, ids, rt.key_words(0), width=w,
+                             height=h, spp=4 * spp, max_depth=depth,
+                             camera_mode="thinlens", options=rt.DEFAULT,
+                             sample_offset=spp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        by_name[ev.key] = (by_name.get(ev.key, (0.0, 0))[0] + us * 1e-6,
+                           by_name.get(ev.key, (0.0, 0))[1] + ev.count)
+    busy = sum(s for s, _n in by_name.values())
+    if busy <= 0:
+        return {"wall_seconds": wall, "device_time": "not measured: the "
+                "profiler reported no device time"}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    hit = sum(s for k, (s, _n) in by_name.items()
+              if "closest_hit_kernel" in k)
+    return {"lanes": int(ids.numel()) * 4 * spp, "wall_seconds": wall,
+            "device_busy_seconds": busy,
+            "host_share": max(0.0, 1.0 - busy / wall),
+            "closest_hit_share_of_busy": hit / busy,
+            "device_kernels": sum(n for _s, n in by_name.values()),
+            "top": [{"name": k[:80], "seconds": s, "count": n}
+                    for k, (s, n) in top]}
+
+
+def adaptive_path_phase(rt, torch, nvidia_smi: str):
+    """render --adaptive at full width, through the CLI and in this
+    process; at the small frame against the plain closest hit; the
+    equal-budget grid against its CPU record."""
+    from raytracinginoneweekend_tpu_torch import kernels
+    from raytracinginoneweekend_tpu_torch.golden import compare_frames
+    from raytracinginoneweekend_tpu_torch.io.image import read_ppm
+
+    frame = {k: MAIN[k] for k in ("width", "height", "spp", "depth")}
+    want_stats = adaptive_expected_stats(frame["width"], frame["height"],
+                                         frame["spp"])
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    out_ppm = os.path.join(kernels.BUILD_DIR, "chip_smoke_adaptive.ppm")
+    # Kernel 1 at the shapes this frame gives it, against its plain
+    # version: the second bounce of stage 1's first half (48 M lanes) and
+    # of the first tier (24 M lanes). The planar engine calls it once a
+    # bounce: the halves, then each tier, ``depth`` calls each.
+    label = {1: "stage1_half_a_bounce_2",
+             2 * frame["depth"] + 1: "tier_1_bounce_2"}
+    cli_stats, cli_launches, cli_s, kept = adaptive_cli(
+        torch, out_ppm, keep=label, **frame)
+    require(sorted(i for i, *_ in kept) == sorted(label),
+            f"kept calls {[i for i, *_ in kept]}, want {sorted(label)}")
+    at_shape = kept_against_plain(torch, kept, label)
+    del kept
+    full = adaptive_in_process(rt, torch, **frame)
+    img = full["img"]
+    u8 = rt.to_u8(img).cpu().numpy()
+    n_launch = frame["depth"] * (2 + len(want_stats["tiers"]))
+    stats = json.loads(json.dumps(full["stats"]))  # tuples as lists
+
+    small = {k: SMALL[k] for k in ("width", "height", "spp", "depth")}
+    k_run = adaptive_in_process(rt, torch, **small)
+    p_run = adaptive_in_process(rt, torch, plain=True, **small)
+    cmp = compare_frames(k_run["img"].cpu().numpy(),
+                         p_run["img"].cpu().numpy())
+    overlap = [len(a & b) / max(len(a), 1) for a, b in zip(
+        tier_sets(k_run["order"], k_run["stats"]["tiers"]),
+        tier_sets(p_run["order"], p_run["stats"]["tiers"]))]
+
+    breakdown = planar_tier_breakdown(rt, torch)
+    t0 = time.perf_counter()
+    grid = adaptive_grid(rt, torch, torch.device("cuda"))
+    grid_s = time.perf_counter() - t0
+    against = adaptive_grid_against_record(grid)
+    worst = max(d for row in against.values() for _g, _w, d in row.values())
+    emit({"phase": "adaptive_path", "card": nvidia_smi, "scene": "huge",
+          **frame,
+          "cli": {"seconds": cli_s, "stats": cli_stats,
+                  "launches": cli_launches},
+          "in_process": {
+              "seconds_per_frame": full["seconds"], "stats": stats,
+              "peak_device_bytes": full["peak_bytes"],
+              "launches": full["launches"],
+              "closest_hit_device_seconds": full["closest_hit_ms"] / 1e3,
+              "closest_hit_launches_timed": full["closest_hit_timed"],
+              "finite": bool(torch.isfinite(img).all()),
+              "mean": float(img.mean())},
+          "cli_ppm_equals_in_process": bool((read_ppm(out_ppm) == u8).all()),
+          "closest_hit_at_frame_shapes_vs_plain": at_shape,
+          "first_tier_profiled": breakdown,
+          "vs_plain": {**small, "compare": cmp, "tier_overlap": overlap,
+                       "kernel_seconds": k_run["seconds"],
+                       "plain_seconds": p_run["seconds"],
+                       "stats_equal": k_run["stats"] == p_run["stats"]},
+          "grid": {**ADAPTIVE_GRID, "seconds": grid_s, "rows": grid["rows"],
+                   "against_ADAPTIVE_r04": against,
+                   "worst_relative_difference": worst}})
+    require(cli_stats == want_stats and stats == want_stats,
+            f"adaptive stats {cli_stats} / {stats}, want {want_stats}")
+    for run in (cli_launches, full["launches"]):
+        require(run == {**dict.fromkeys(kernels.LAUNCHES, 0),
+                        "closest_hit": n_launch},
+                f"the adaptive frame's launches: {run}, want closest_hit "
+                f"{n_launch} and nothing else")
+    require(bool(torch.isfinite(img).all()), "the adaptive frame is not "
+            "finite")
+    require(read_ppm(out_ppm).shape == u8.shape
+            and bool((read_ppm(out_ppm) == u8).all()),
+            "render --adaptive wrote another image than render_adaptive")
+    require(cmp["ok"] and k_run["stats"] == p_run["stats"],
+            f"the adaptive frame with kernel 1 differs from its plain "
+            f"version's: {cmp}")
+    require(worst <= ADAPTIVE_GRID_REL,
+            f"equal-budget MSE ratios leave docs/ADAPTIVE_r04.json by "
+            f"{worst:.4f} relative: {against}")
+    return {"img": img, "launches": full["launches"]}
+
+
+# --------------------------------------------------------------------- #
+# serve_path phase: the render server on the card
+# --------------------------------------------------------------------- #
+
+SERVE_FIT = dict(scene="simple-cuda", width=200, height=112, depth=8,
+                 spp=2, params="albedo,centers", steps=3, fit_spp=2,
+                 batch_pixels=1024)
+SERVE_RESERVED_GROWTH = 0.05  # third served main frame against the first
+SERVE_SHUTDOWN_S = 30
+
+
+def port_command(*args) -> list:
+    return [sys.executable, "-m", "raytracinginoneweekend_tpu_torch",
+            *args]
+
+
+def port_env() -> dict:
+    repo = os.path.dirname(os.path.abspath(__file__))
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONPATH=repo + (os.pathsep + path
+                                               if path else ""))
+
+
+def serve_socket_path() -> str:
+    """<build dir>/rtw.sock, or a fresh temporary directory's where that
+    path is too long for a Unix socket."""
+    import tempfile
+    from raytracinginoneweekend_tpu_torch import kernels
+
+    path = os.path.join(kernels.BUILD_DIR, "rtw.sock")
+    if len(os.fsencode(path)) > 100:
+        path = os.path.join(tempfile.mkdtemp(prefix="rtw"), "rtw.sock")
+    return path
+
+
+def timed_request(serve, sock: str, req: dict, timeout: float):
+    t0 = time.perf_counter()
+    resp = serve.request(sock, req, timeout=timeout)
+    return resp, time.perf_counter() - t0
+
+
+def trace_names(log_dir: str) -> str:
+    """The text of the one trace file in ``log_dir``."""
+    files = [f for f in os.listdir(log_dir) if f.endswith(".json")]
+    require(len(files) == 1, f"{log_dir} holds {files}")
+    with open(os.path.join(log_dir, files[0])) as f:
+        return f.read()
+
+
+def writer_seconds(u8, build: str) -> dict:
+    """io/image's PPM and PNG writers on one frame through the native
+    codec and through the Python fallback -> the best of three seconds
+    each, and whether the two wrote the same bytes."""
+    from raytracinginoneweekend_tpu_torch import native
+    from raytracinginoneweekend_tpu_torch.io import image
+
+    out = {}
+    for ext in ("ppm", "png"):
+        write, nat = getattr(image, f"write_{ext}"), getattr(native,
+                                                             f"write_{ext}")
+        written = {}
+        for route in ("native", "python"):
+            path = os.path.join(build, f"chip_smoke_writer_{route}.{ext}")
+            if route == "python":
+                setattr(native, f"write_{ext}", lambda p, a: False)
+            try:
+                secs = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    write(path, u8)
+                    secs.append(time.perf_counter() - t0)
+            finally:
+                setattr(native, f"write_{ext}", nat)
+            out[f"{ext}_{route}_seconds"] = min(secs)
+            with open(path, "rb") as f:
+                written[route] = f.read()
+        out[f"{ext}_bytes"] = len(written["native"])
+        out[f"{ext}_same_bytes"] = written["native"] == written["python"]
+    return out
+
+
+def serve_path_phase(rt, torch, nvidia_smi: str, adaptive_img=None):
+    """The render server as a subprocess on the card: ping, the main frame
+    three times, the adaptive frame, a bench, a small fit, a bad request,
+    render --via from another process, shutdown; beside it a fresh
+    render process, render --profile and the native codec."""
+    import shutil
+    from raytracinginoneweekend_tpu_torch import cli, kernels, native, serve
+    from raytracinginoneweekend_tpu_torch.io.image import read_ppm
+
+    build = kernels.BUILD_DIR
+    os.makedirs(build, exist_ok=True)
+    frame = {k: MAIN[k] for k in ("scene", "width", "height", "spp",
+                                  "depth")}
+    main_img = render(rt, torch, rt.DEFAULT, **{k: frame[k] for k in (
+        "width", "height", "spp", "depth")})
+    main_u8 = rt.to_u8(main_img.reshape(frame["height"], frame["width"],
+                                        3)).cpu().numpy()
+    if adaptive_img is None:
+        adaptive_img = adaptive_in_process(
+            rt, torch, **{k: frame[k] for k in ("width", "height", "spp",
+                                                "depth")})["img"]
+    adaptive_u8 = rt.to_u8(adaptive_img).cpu().numpy()
+
+    sock = serve_socket_path()
+    log_path = os.path.join(build, "chip_smoke_serve.log")
+    res = {"phase": "serve_path", "card": nvidia_smi, "socket": sock}
+    t_start = time.perf_counter()
+    with open(log_path, "wb") as log:
+        # The log is a file, never a pipe: an undrained pipe fills and
+        # blocks the server mid-request.
+        proc = subprocess.Popen(port_command("serve", "--socket", sock),
+                                env=port_env(), stdout=log,
+                                stderr=subprocess.STDOUT)
+    try:
+        deadline = time.perf_counter() + 180
+        while True:  # the socket file appears at bind, before listen
+            require(proc.poll() is None and time.perf_counter() < deadline,
+                    f"the server did not come up: {open(log_path).read()}")
+            try:
+                ping = serve.request(sock, {"cmd": "ping"}, timeout=30)
+                break
+            except (FileNotFoundError, ConnectionRefusedError):
+                time.sleep(0.1)
+        res["startup_seconds"] = time.perf_counter() - t_start
+        res["socket_mode"] = oct(os.stat(sock).st_mode & 0o777)
+        res["ping"] = ping
+        require(res["socket_mode"] == "0o600", f"socket mode "
+                f"{res['socket_mode']}")
+        require(ping.get("ok") and ping.get("proto") == 1
+                and ping.get("device") == "cuda", f"ping: {ping}")
+
+        mains = []
+        for i in range(3):
+            out = os.path.join(build, f"chip_smoke_serve_main{i}.ppm")
+            resp, wall = timed_request(serve, sock, dict(
+                cmd="render", out=out, **frame), timeout=300)
+            require(resp.get("ok"), f"served main frame {i}: {resp}")
+            mains.append({"request_seconds": wall,
+                          "server_seconds": resp["seconds"],
+                          "memory_reserved": resp.get("memory_reserved"),
+                          "launches": resp["launches"],
+                          "ppm_equals_in_process": bool(
+                              (read_ppm(out) == main_u8).all())})
+        res["main_frames"] = mains
+        reserved = [m["memory_reserved"] for m in mains]
+        growth = (reserved[2] / reserved[0] - 1) if reserved[0] else None
+        res["reserved_growth_third_vs_first"] = growth
+
+        out = os.path.join(build, "chip_smoke_serve_adaptive.ppm")
+        resp, wall = timed_request(serve, sock, dict(
+            cmd="render", out=out, adaptive=True, **frame), timeout=600)
+        require(resp.get("ok"), f"served adaptive frame: {resp}")
+        res["adaptive_frame"] = {
+            "request_seconds": wall, "server_seconds": resp["seconds"],
+            "memory_reserved": resp.get("memory_reserved"),
+            "launches": resp["launches"],
+            "ppm_equals_in_process": bool((read_ppm(out) == adaptive_u8)
+                                          .all())}
+
+        resp, wall = timed_request(serve, sock, dict(
+            cmd="bench", iters=2, **frame), timeout=600)
+        require(resp.get("ok"), f"bench request: {resp}")
+        res["bench"] = {**resp, "request_seconds": wall}
+
+        resp, wall = timed_request(serve, sock, dict(cmd="fit", **SERVE_FIT),
+                                   timeout=600)
+        require(resp.get("ok"), f"fit request: {resp}")
+        res["fit"] = {**resp, "request_seconds": wall}
+
+        bad = serve.request(sock, {"cmd": "render", "scene": "nope"},
+                            timeout=60)
+        res["bad_request"] = bad
+        require(not bad.get("ok") and "error" in bad
+                and serve.request(sock, {"cmd": "ping"}, timeout=30)["ok"],
+                f"a bad request: {bad}")
+
+        out = os.path.join(build, "chip_smoke_via.ppm")
+        small = ["--scene", "huge", "--width", str(SMALL["width"]),
+                 "--height", str(SMALL["height"]), "--spp",
+                 str(SMALL["spp"]), "--depth", str(SMALL["depth"])]
+        t0 = time.perf_counter()
+        via = subprocess.run(port_command("render", "--via", sock, *small,
+                                          "--out", out),
+                             env=port_env(), capture_output=True, text=True,
+                             timeout=300)
+        res["via"] = {"rc": via.returncode, "seconds": time.perf_counter()
+                      - t0, "stdout": via.stdout.strip()[-500:]}
+        require(via.returncode == 0, f"render --via: {via.stdout[-2000:]}"
+                f"{via.stderr[-2000:]}")
+
+        resp = serve.request(sock, {"cmd": "shutdown"}, timeout=30)
+        t0 = time.perf_counter()
+        rc = proc.wait(timeout=SERVE_SHUTDOWN_S)
+        res["shutdown"] = {"response": resp, "rc": rc,
+                           "seconds": time.perf_counter() - t0,
+                           "socket_gone": not os.path.exists(sock)}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log_path) as f:
+        res["server_log_tail"] = f.read()[-1500:]
+
+    # a fresh process for the same frame: what the server saves
+    out = os.path.join(build, "chip_smoke_cold.ppm")
+    t0 = time.perf_counter()
+    cold = subprocess.run(port_command(
+        "render", *(f"--{k}={v}" for k, v in frame.items()), "--out", out),
+        env=port_env(), capture_output=True, text=True, timeout=300)
+    res["fresh_process"] = {
+        "rc": cold.returncode, "seconds": time.perf_counter() - t0,
+        "stdout": cold.stdout.strip()[-300:],
+        "ppm_equals_in_process": cold.returncode == 0 and bool(
+            (read_ppm(out) == main_u8).all())}
+    require(cold.returncode == 0, f"a fresh render: {cold.stderr[-2000:]}")
+
+    # render --profile of the small frame: a trace that names the kernels
+    prof_dir = os.path.join(build, "chip_smoke_profile")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        prof_rc = cli.main(["render", "--scene", "huge", "--width",
+                       str(SMALL["width"]), "--height", str(SMALL["height"]),
+                       "--spp", str(SMALL["spp"]), "--depth",
+                       str(SMALL["depth"]), "--profile", prof_dir, "--out",
+                       os.path.join(build, "chip_smoke_profile.ppm")])
+    text = trace_names(prof_dir)
+    res["profile"] = {"rc": prof_rc, "trace_bytes": len(text), **{
+        f"names_{sym}": sym in text
+        for sym in ("closest_hit_kernel", "shade_regen_kernel")}}
+
+    lib = native.lib()
+    res["native_codec"] = {"built": lib is not None,
+                           "why_not": None if lib else native.build_error,
+                           **(writer_seconds(main_u8, build) if lib else {})}
+    emit(res)
+    require(all(m["ppm_equals_in_process"] for m in mains),
+            f"a served main frame differs from the in-process one: {mains}")
+    require(growth is not None and growth <= SERVE_RESERVED_GROWTH,
+            f"reserved memory over three served frames: {reserved}")
+    require(res["adaptive_frame"]["ppm_equals_in_process"],
+            "the served adaptive frame differs from the in-process one")
+    require(res["bench"]["seconds_per_frame"] > 0, "bench")
+    import math
+    require(math.isfinite(res["fit"]["loss_end"]), f"fit: {res['fit']}")
+    require(res["shutdown"]["rc"] == 0 and res["shutdown"]["socket_gone"],
+            f"shutdown: {res['shutdown']}")
+    n_adaptive = MAIN["depth"] * 4  # stage 1's two halves, two tiers
+    require(all(m["launches"] == mains[0]["launches"] for m in mains)
+            and all(mains[0]["launches"].get(k, 0) > 0
+                    for k in ("closest_hit", "shade_regen", "regen_only")),
+            f"the served main frames' launches: {mains}")
+    require(res["adaptive_frame"]["launches"] == {"closest_hit":
+                                                  n_adaptive},
+            f"the served adaptive frame's launches: "
+            f"{res['adaptive_frame']['launches']}")
+    require(res["fresh_process"]["ppm_equals_in_process"],
+            "a fresh render process wrote another main frame")
+    require(res["profile"]["names_closest_hit_kernel"]
+            and res["profile"]["names_shade_regen_kernel"],
+            f"the profile's trace does not name the kernels: "
+            f"{res['profile']}")
+    require(prof_rc == 0, f"render --profile returned {prof_rc}")
+    require(not lib or (res["native_codec"]["ppm_same_bytes"]
+                        and res["native_codec"]["png_same_bytes"]),
+            f"the native codec wrote other bytes: {res['native_codec']}")
+    return mains[0]["launches"]
+
+
 # The full frame's mean against the 240x160 @ 8 spp frame's: two Monte-Carlo
 # estimates of nearly the same integral (the small one stops at depth 12).
 MEAN_TOL = 1e-3
@@ -4848,6 +5538,10 @@ def main(argv=None) -> int:
         "surrogate_path": lambda: surrogate_path_phase(rt, torch,
                                                        nvidia_smi),
         "cli_fit": lambda: cli_fit_phase(rt, torch, nvidia_smi),
+        "adaptive_path": lambda: adaptive_path_phase(rt, torch, nvidia_smi),
+        "serve_path": lambda: serve_path_phase(
+            rt, torch, nvidia_smi,
+            (out.get("adaptive_path") or {}).get("img")),
     }
     try:
         for phase in PHASES:
@@ -4892,6 +5586,13 @@ def main(argv=None) -> int:
             # the full-surrogate step: kernel 3 in the probe traces and
             # attached hops, kernel 1 in the AD pool
             k["launches_surrogate_path"] = out["surrogate_path"][name]
+        if name == "closest_hit":
+            # the full-width render --adaptive (the planar engine)
+            k["launches_adaptive_path"] = \
+                out["adaptive_path"]["launches"][name]
+        if name in ("closest_hit", "shade_regen", "regen_only"):
+            # one served main frame, counted by the server
+            k["launches_serve_path"] = out["serve_path"].get(name, 0)
         if k["launches"] <= 0:
             print(f"chip_smoke: FAILED: kernel {name} was launched on no "
                   "path", file=sys.stderr)

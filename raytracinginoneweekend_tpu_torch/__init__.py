@@ -12,7 +12,9 @@ variants (``ops.wavefront_dual.render_wavefront_dual``, and through
 and the unfused step) and its scatter deposit for frames past the ledger
 cap, the tiled engine and the training path (``fit`` with the planar,
 tiled and regenerative-pool AD engines and the gradient surrogates,
-ops/silhouette.py and ops/branchprob.py):
+ops/silhouette.py and ops/branchprob.py), two-stage adaptive sampling
+(``adaptive.render_adaptive``), the render server (``serve.py``) and the
+native image codec (``native/``):
   Scenes:      Scene, simple_scene_cuda, simple_scene_cpu, huge_scene,
                validate_scene, scene_from_numpy
   Cameras:     Camera, make_camera, reference_cuda_camera,
@@ -22,7 +24,9 @@ ops/silhouette.py and ops/branchprob.py):
   Optimization: optim.fit, optim.make_train_step, optim.render_loss,
                optim.render_pixels_vjp, optim.save/load_checkpoint
   Postprocess: to_u8, write_ppm, write_png
-  CLI:         python -m raytracinginoneweekend_tpu_torch {render,bench,fit}
+  CLI:         python -m raytracinginoneweekend_tpu_torch
+               {render,bench,fit,serve} (render --adaptive, --profile;
+               --via SOCKET)
 
 Every entry point takes ``device=None``: that means the CUDA card, and
 raises when there is none. Ask for ``device="cpu"`` explicitly (the tests

@@ -24,9 +24,13 @@ gradient surrogates (``--boundary-samples``, ``--secondary-samples``,
 ``--secondary-vertex-depths``, ``--rr-grad``, ``--rr-grad-arms``); on a
 CUDA device ``--intersect auto`` routes their probe traces through the
 intersect kernel. A frame whose task ledger would pass the engine's cap
-deposits by pixel by itself (no flag, as in the JAX CLI). ``serve``,
-``--via``, ``--adaptive`` and the sharded engines come with later slices
-of the port (ROADMAP.md).
+deposits by pixel by itself (no flag, as in the JAX CLI). ``render
+--adaptive`` is two-stage adaptive sampling on the planar engine
+(adaptive.py; it ignores ``--engine`` and ``--stats``, as the JAX CLI
+does); ``render --profile DIR`` writes a torch.profiler trace of the
+render. ``serve`` runs the render server (serve.py) on one device, and
+``--via SOCKET`` forwards ``render``, ``bench`` or ``fit`` to it. The
+sharded engines come with a later slice of the port (ROADMAP.md).
 
 Examples:
   python -m raytracinginoneweekend_tpu_torch render --scene simple-cuda \
@@ -36,14 +40,21 @@ Examples:
   python -m raytracinginoneweekend_tpu_torch fit --scene simple-cuda \
       --width 200 --height 112 --params albedo,centers --steps 20 \
       --checkpoint fit.npz
+  python -m raytracinginoneweekend_tpu_torch serve --socket /tmp/rtw.sock &
+  python -m raytracinginoneweekend_tpu_torch render --via /tmp/rtw.sock \
+      --scene huge --width 1200 --height 800 --spp 100 --depth 50 \
+      --adaptive --out cover.ppm
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import sys
+import tempfile
 import time
 
 ENGINES = ("auto", "wavefront", "wavefront-dual", "wavefront-sharded",
@@ -162,10 +173,22 @@ def _add_render_flags(p: argparse.ArgumentParser):
                         "(iterations, traced segments, lane occupancy; "
                         "for --engine wavefront-dual its metrics dict) as "
                         "a JSON line on stderr")
+    p.add_argument("--adaptive", action="store_true",
+                   help="two-stage adaptive sampling (adaptive.py): "
+                        "--spp becomes the base; the noisiest 6.25%% of "
+                        "pixels get +4x and the next 25%% +1x extra "
+                        "samples (avg 1.5x budget). Opt-in estimator "
+                        "change; composes with --sampling stratified "
+                        "(stage 1 keeps the full stratified pattern, "
+                        "tiers draw iid); runs on the planar engine")
     p.add_argument("--device", default=None,
                    help="torch device to run on; default: the CUDA card "
                         "(fails when there is none). 'cpu' runs the "
                         "kernels' plain PyTorch versions")
+    p.add_argument("--via", default=None, metavar="SOCKET",
+                   help="forward to a running render server (see the "
+                        "serve subcommand), which renders on its own "
+                        "device with its kernels already loaded")
 
 
 def _render_image(args):
@@ -175,7 +198,8 @@ def _render_image(args):
     from .ops.wavefront import render_wavefront
     from .utils.device import resolve_device
 
-    if args.engine not in ("auto", "wavefront", "wavefront-dual", "tiled"):
+    if not args.adaptive and args.engine not in (
+            "auto", "wavefront", "wavefront-dual", "tiled"):
         raise NotImplementedError(
             f"--engine {args.engine} is not ported yet (ROADMAP.md, "
             "Queue 1: multi-GPU)")
@@ -190,6 +214,17 @@ def _render_image(args):
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        max_depth=args.depth, camera_mode=args.mode,
                        options=options)
+    if args.adaptive:
+        # Before the engine dispatch, as in the JAX CLI: the planar
+        # engine, whatever --engine or --stats say.
+        from .adaptive import render_adaptive
+
+        img, astats = render_adaptive(
+            scene, cam, key_words(args.seed), width=args.width,
+            height=args.height, spp_base=args.spp, max_depth=args.depth,
+            camera_mode=args.mode, options=options, return_stats=True)
+        print(json.dumps({"adaptive": astats}), file=sys.stderr)
+        return img.reshape(args.height, args.width, 3), cfg
     if args.engine == "tiled":
         from .render import render
 
@@ -226,13 +261,69 @@ def _render_image(args):
     return img.reshape(args.height, args.width, 3), cfg
 
 
+def _via_server(args, cmd: str) -> int:
+    """Forward a render/bench/fit request to a running render server."""
+    from . import serve
+
+    # Handshake BOTH ways: the request carries proto (a newer server
+    # rejects us), and we check the server's ping proto first (an OLDER
+    # server would otherwise drop unknown request keys -- e.g. adaptive
+    # -- and silently render something else).
+    info = serve.request(args.via, {"cmd": "ping"})
+    if info.get("proto") != serve.PROTO_VERSION:
+        print(json.dumps({
+            "ok": False,
+            "error": f"server at {args.via} runs protocol "
+                     f"{info.get('proto')!r}, client needs "
+                     f"{serve.PROTO_VERSION} -- restart the server "
+                     f"from this checkout"}))
+        return 1
+    refused = [flag for flag, on in (
+        ("--stats", args.stats), ("--profile", getattr(args, "profile",
+                                                       None)),
+        ("--device", args.device)) if on]
+    if refused:
+        # The server would render fine but never produce the counters or
+        # the trace asked for, and it renders on its own device (serve
+        # --device): refuse instead of silently diverging.
+        print(json.dumps({
+            "ok": False,
+            "error": f"{'/'.join(refused)} not supported with --via; run "
+                     "locally for engine counters or profiler traces, "
+                     "and choose the server's device with serve "
+                     "--device"}))
+        return 1
+    # Every knob that changes the frame forwards (the server's request
+    # keys are this CLI's flags), or a --via render would silently differ
+    # from the local one; paths go as absolute paths.
+    req = {k: v for k, v in vars(args).items()
+           if k in serve.request_keys(cmd)}
+    req.update(cmd=cmd, proto=serve.PROTO_VERSION)
+    if cmd == "render":
+        req["out"] = os.path.abspath(args.out)
+        req["clamp"] = not args.no_clamp
+    for k in ("checkpoint", "resume"):
+        if req.get(k):
+            req[k] = os.path.abspath(req[k])
+    resp = serve.request(args.via, req)
+    print(json.dumps(resp))
+    return 0 if resp.get("ok") else 1
+
+
 def cmd_render(args) -> int:
+    if args.via:
+        return _via_server(args, "render")
     from .io.image import write_png, write_ppm
     from .ops.postprocess import to_u8
+    from .utils.device import resolve_device
+    from .utils.timing import profile_trace
 
+    prof = (profile_trace(args.profile, resolve_device(args.device))
+            if args.profile else contextlib.nullcontext())
     t0 = time.perf_counter()
-    img, _cfg = _render_image(args)
-    u8 = to_u8(img, clamp=not args.no_clamp).cpu().numpy()  # waits
+    with prof:
+        img, _cfg = _render_image(args)
+        u8 = to_u8(img, clamp=not args.no_clamp).cpu().numpy()  # waits
     dt = time.perf_counter() - t0
     writer = write_png if args.out.endswith(".png") else write_ppm
     writer(args.out, u8)
@@ -244,6 +335,8 @@ def cmd_render(args) -> int:
 
 
 def cmd_bench(args) -> int:
+    if args.via:
+        return _via_server(args, "bench")
     from .render import render_rays_count
     from .utils.device import resolve_device
     from .utils.timing import time_fn
@@ -344,6 +437,8 @@ def _fit_impl(args, log=print) -> dict:
 
 
 def cmd_fit(args) -> int:
+    if args.via:
+        return _via_server(args, "fit")
     res = _fit_impl(args, log=lambda s: print(s, flush=True))
     for name, err in res["errors"].items():
         print(f"{name}: max abs err vs truth = {err:.5f}")
@@ -351,7 +446,13 @@ def cmd_fit(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def cmd_serve(args) -> int:
+    from .serve import serve
+
+    return serve(args.socket, args.device)
+
+
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="raytracinginoneweekend_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -360,12 +461,25 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="image.png")
     p.add_argument("--no-clamp", action="store_true",
                    help="reference-exact raw u8 cast (can wrap, quirk Q6)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the render "
+                        "(Chrome-trace JSON; the card's kernels by symbol "
+                        "on a CUDA device) into DIR")
     p.set_defaults(fn=cmd_render)
 
     p = sub.add_parser("bench", help="measure rays/s")
     _add_render_flags(p)
     p.add_argument("--iters", type=int, default=2)
     p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser("serve", help="persistent render server (the "
+                                     "kernels and CUDA context load once)")
+    p.add_argument("--socket",
+                   default=os.path.join(tempfile.gettempdir(), "rtw.sock"))
+    p.add_argument("--device", default=None,
+                   help="the device every request runs on; default: the "
+                        "CUDA card (fails when there is none)")
+    p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("fit", help="inverse rendering demo")
     _add_render_flags(p)
@@ -410,6 +524,16 @@ def main(argv=None) -> int:
     p.add_argument("--checkpoint-every", type=int, default=25)
     p.add_argument("--resume", default=None)
     p.set_defaults(fn=cmd_fit)
+    return parser
 
-    args = parser.parse_args(argv)
+
+def flag_defaults(cmd: str) -> dict:
+    """The defaults of a subcommand's flags, by their dest (the render
+    server's request keys come from these)."""
+    args = build_parser().parse_args([cmd])
+    return {k: v for k, v in vars(args).items() if k not in ("cmd", "fn")}
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     return args.fn(args)

@@ -48,6 +48,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.math3 import sqrt_rn
+
 BIG = np.float32(1e30)
 WARP = 32
 
@@ -299,7 +301,7 @@ def mxu_guarded(x, y, z, vx, vy, vz, a, q_min, cx, cy, cz, ccr):
     elsewhere."""
     disc, bneg = _mxu_disc(x, y, z, vx, vy, vz, a, cx, cy, cz, ccr)
     pos = disc >= 0
-    sq = torch.sqrt(torch.where(pos, disc, torch.ones_like(disc)))
+    sq = sqrt_rn(torch.where(pos, disc, torch.ones_like(disc)))
     q0, q1 = bneg - sq, bneg + sq
     big = torch.full_like(q0, float(BIG))
     q = torch.where(q0 > q_min, q0, torch.where(q1 > q_min, q1, big))
@@ -315,7 +317,7 @@ def guarded(x, y, z, vx, vy, vz, a, q_min, cx, cy, cz, rr):
     c = ocx * ocx + ocy * ocy + ocz * ocz - rr
     disc = b * b - a * c
     pos = disc >= 0
-    sq = torch.sqrt(torch.where(pos, disc, torch.ones_like(disc)))
+    sq = sqrt_rn(torch.where(pos, disc, torch.ones_like(disc)))
     q0, q1 = -b - sq, -b + sq
     big = torch.full_like(q0, float(BIG))
     q = torch.where(q0 > q_min, q0, torch.where(q1 > q_min, q1, big))
@@ -332,7 +334,7 @@ def guarded_t(x, y, z, vx, vy, vz, a, inv_a, t_min, cx, cy, cz, rr):
     c = ocx * ocx + ocy * ocy + ocz * ocz - rr
     disc = b * b - a * c
     pos = disc > 0
-    sq = torch.sqrt(torch.where(pos, disc, torch.ones_like(disc)))
+    sq = sqrt_rn(torch.where(pos, disc, torch.ones_like(disc)))
     nb = -b
     t0, t1 = (nb - sq) * inv_a, (nb + sq) * inv_a
     big = torch.full_like(t0, float(BIG))

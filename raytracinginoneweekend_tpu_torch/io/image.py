@@ -1,8 +1,10 @@
 """Host-side image writers.
 
 Equivalent of app::save_to_file's binary P6 PPM writer (main.cxx:87-101),
-plus a dependency-free PNG writer (stdlib zlib). Pure Python; the JAX
-package's optional native encoder is not part of the port.
+plus a dependency-free PNG writer (stdlib zlib). A native (C++) encoder
+(native/, the port's copy of the JAX package's) writes the same bytes and
+is used when it builds; these pure-Python writers are the always-available
+fallback.
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ def _as_u8(image) -> np.ndarray:
 def write_ppm(path, image) -> None:
     """Binary P6 PPM, byte-identical header format to main.cxx:96-100."""
     arr = _as_u8(image)
+    from .. import native
+
+    if native.write_ppm(path, arr):
+        return
     h, w, _ = arr.shape
     with open(path, "wb") as f:
         f.write(f"P6\n{w} {h}\n255\n".encode("ascii"))
@@ -47,8 +53,12 @@ def read_ppm(path) -> np.ndarray:
 
 
 def write_png(path, image) -> None:
-    """RGB8 PNG writer on stdlib zlib."""
+    """RGB8 PNG writer: native (C++/zlib) when built, stdlib zlib fallback."""
     arr = _as_u8(image)
+    from .. import native
+
+    if native.write_png(path, arr):
+        return
     h, w, _ = arr.shape
 
     def chunk(tag: bytes, payload: bytes) -> bytes:

@@ -82,6 +82,7 @@ import torch
 
 from .. import kernels
 from ..utils.device import resolve_device
+from .math3 import sqrt_rn
 from .rng import _f32
 
 LANES = 128
@@ -145,7 +146,7 @@ def _candidates(x, y, z, vx, vy, vz, a, q_min, cx, cy, cz, rr):
     ocz = z - cz
     b = ocx * vx + ocy * vy + ocz * vz
     c = ocx * ocx + ocy * ocy + ocz * ocz - rr
-    sq = torch.sqrt(b * b - a * c)  # NaN when disc < 0
+    sq = sqrt_rn(b * b - a * c)  # NaN when disc < 0
     nb = -b
     q0 = nb - sq
     q1 = nb + sq
@@ -718,7 +719,7 @@ def segment_closest_hit_mxu_reference(rays, cx, cy, cz, r, t_min,
         o_c = x * tx + y * ty + z * tz
         bneg = d_c - d_o
         c = (o_o - (o_c + o_c)) + ccr
-        sq = torch.sqrt(bneg * bneg - a * c)  # NaN when disc < 0
+        sq = sqrt_rn(bneg * bneg - a * c)  # NaN when disc < 0
         q0 = bneg - sq
         q1 = bneg + sq
         big = torch.full_like(q0, BIG)

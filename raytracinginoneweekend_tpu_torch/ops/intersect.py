@@ -28,6 +28,8 @@ from __future__ import annotations
 
 import torch
 
+from .math3 import sqrt_rn
+
 BIG = 1e30  # "no hit" sentinel
 _RAY_CHUNK = 1 << 16  # rays per slab of the (N, B) intermediates
 
@@ -48,7 +50,7 @@ def _block_candidates(ox, oy, oz, dx, dy, dz, a, inv_a, cx, cy, cz, rad,
     disc = b * b - a * c
     pos = disc > 0.0
     # "double where": sqrt never sees negatives.
-    sq = torch.sqrt(torch.where(pos, disc, torch.ones_like(disc)))
+    sq = sqrt_rn(torch.where(pos, disc, torch.ones_like(disc)))
     nb = -b
     t0 = (nb - sq) * inv_a
     t1 = (nb + sq) * inv_a

@@ -1,5 +1,5 @@
-"""Throughput metering: wall time around synchronised device work, and CUDA
-events for kernel times.
+"""Throughput metering: wall time around synchronised device work, CUDA
+events for kernel times, and profiler traces.
 
 PyTorch returns from a CUDA call before the device has finished, so every
 timed region ends in ``torch.cuda.synchronize()`` (host clock) or is
@@ -8,6 +8,8 @@ bracketed by CUDA events (device clock).
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import torch
@@ -69,3 +71,33 @@ def cuda_time_ms(fn, warmup: int = 2, iters: int = 10,
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str, device=None):
+    """Capture a ``torch.profiler`` trace of the body into ``log_dir``.
+
+    Counterpart of the JAX package's ``jax.profiler`` trace. The CPU
+    activity always, the CUDA activity (the card's kernels by symbol) when
+    ``device`` (``None`` = the CUDA card) is one. On exit -- also when the
+    body raises -- the trace is written as Chrome-trace JSON,
+    ``trace_<pid>_<ns>.json`` in ``log_dir``; yields the profiler.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    from .device import resolve_device
+
+    device = resolve_device(device)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        _sync(device)
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

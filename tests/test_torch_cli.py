@@ -122,12 +122,15 @@ def test_cli_device_default_is_cuda_and_unported_engines_raise(tmp_path):
     # the whole-bounce step is carried (tests/test_torch_mega.py)
     assert pcli.main(["render", *small, "--device", "cpu", "--fusion",
                       "bounce"]) == 0
-    with pytest.raises(SystemExit):  # not ported: no such subcommand/flag
-        pcli.main(["serve"])
-    with pytest.raises(SystemExit):
-        pcli.main(["render", "--via", "/tmp/sock"])
-    with pytest.raises(SystemExit):
-        pcli.main(["fit", "--via", "/tmp/sock"])
+    # the server runs on the card unless asked (tests/test_torch_serve.py)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pcli.main(["serve", "--socket", str(tmp_path / "s.sock")])
+    assert not os.path.exists(tmp_path / "s.sock")
+    # --via forwards to a server, and there is none at this socket
+    for cmd in ("render", "bench", "fit"):
+        with pytest.raises(FileNotFoundError):
+            pcli.main([cmd, "--via", str(tmp_path / "none.sock")])
 
 
 HUGE_FLAGS = ["--scene", "huge", "--width", "48", "--height", "32", "--spp",

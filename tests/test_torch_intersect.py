@@ -13,10 +13,18 @@ separately, as its CUDA kernel does (-fmad=false). So:
     or t_min knife edge);
   * on ordinary spheres t agrees to 2e-6 at the median and 1e-3 everywhere
     (the tail is grazing incidence, where the discriminant cancels);
-  * on a ground sphere (|r| >= 100) the near root cancels catastrophically
-    and the JAX value itself moves with the contraction: median 1e-4, 90th
-    percentile 0.02, 99th 0.2 -- the class tests/test_torch_segment.py
-    holds the planar kernel's plain version to.
+  * on a ground sphere (|r| >= 100) the near root cancels catastrophically,
+    so one ulp of any product (a contraction, a square root not rounded to
+    nearest) moves t by percents; there the port's t is held to a float64
+    NumPy witness of the same rays and the same sphere, which depends on
+    neither float32 arithmetic: median 1e-4, 90th percentile 0.02, 99th
+    0.2 (measured: 5e-6, 6e-5 and 4e-4) -- the class
+    tests/test_torch_segment.py holds the planar kernel's plain version
+    to. Hit and index stay held to JAX.
+The plain version's square root is rounded to nearest on the CPU
+(``ops/math3.sqrt_rn``; torch.sqrt there is not, and has rounded
+otherwise on its first call in a loaded process), so repeated calls give
+the same bits.
 Gradients: rtol 2e-3 / atol 1e-5 against ``jax.grad`` of the JAX
 ``closest_hit_diff`` and against autograd through the plain forward (the
 JAX package's own tolerance for its custom VJP).
@@ -78,7 +86,23 @@ def _rays(name, n, seed=0):
     return o, d
 
 
-def _check(got, want, radii):
+def _witness_t(o, d, centers, radii, idx):
+    """float64 t of each ray against the sphere ``idx`` (the nearest root
+    past T_MIN), from the same float32 rays and spheres."""
+    oc = o.astype(np.float64) - centers[idx].astype(np.float64)
+    d64 = d.astype(np.float64)
+    a = (d64 * d64).sum(-1)
+    b = (oc * d64).sum(-1)
+    c = (oc * oc).sum(-1) - radii[idx].astype(np.float64) ** 2
+    sq = np.sqrt(np.maximum(b * b - a * c, 0.0))
+    near, far = (-b - sq) / a, (-b + sq) / a
+    return np.where(near > T_MIN, near, far)
+
+
+def _check(got, want, radii, witness=None):
+    """``witness``: the float64 t of the port's sphere for each ray
+    (``_witness_t``), which the ground class is held to; without it (the
+    callers in other files) the ground class is held to JAX."""
     (gt, gi, gh), (wt, wi, wh) = got, want
     assert gt.dtype == np.float32 and gi.dtype == np.int32
     assert gh.dtype == np.bool_
@@ -95,9 +119,11 @@ def _check(got, want, radii):
     assert rel[small].max() <= 1e-3
     ground = agree & big
     if ground.any():
-        assert np.median(rel[ground]) <= 1e-4
-        assert np.percentile(rel[ground], 90) <= 0.02
-        assert np.percentile(rel[ground], 99) <= 0.2
+        ref = wt if witness is None else witness
+        rel_w = np.abs(gt - ref) / np.abs(ref)
+        assert np.median(rel_w[ground]) <= 1e-4
+        assert np.percentile(rel_w[ground], 90) <= 0.02
+        assert np.percentile(rel_w[ground], 99) <= 0.2
 
 
 @pytest.mark.parametrize("reference", ["jnp", "pallas_interpret"])
@@ -115,7 +141,26 @@ def test_closest_hit_matches_jax(scene, wrapper, reference):
     fn = pint.closest_hit if wrapper == "plain" else closest_hit_cuda
     got = fn(*(torch.from_numpy(x.copy()) for x in (o, d, centers, radii)),
              T_MIN)
-    _check([x.numpy() for x in got], [np.asarray(x) for x in want], radii)
+    got = [x.numpy() for x in got]
+    _check(got, [np.asarray(x) for x in want], radii,
+           _witness_t(o, d, centers, radii, got[1]))
+
+
+@pytest.mark.parametrize("scene", ["simple", "huge", "negative"])
+def test_plain_closest_hit_gives_the_same_bits_every_call(scene):
+    """The port's plain closest hit on the same rays, called three times in
+    one worker (twice on fresh copies, once on tensors that share the
+    NumPy buffers), gives the same bits each time."""
+    centers, radii = _scene_geometry(scene)
+    o, d = _rays(scene, 4096 + 7 if scene == "huge" else 600, seed=3)
+    arrays = (o, d, centers.copy(), radii.copy())  # all writable
+    runs = [pint.closest_hit(*(torch.from_numpy(x.copy()) for x in arrays),
+                             T_MIN) for _ in range(2)]
+    runs.append(pint.closest_hit(*(torch.from_numpy(x) for x in arrays),
+                                 T_MIN))
+    for got in runs[1:]:
+        for a, b in zip(runs[0], got):
+            assert torch.equal(a, b)
 
 
 def _single(fn, o, d, centers, radii, **kw):

@@ -15,10 +15,13 @@ kernel does. So:
     percentile and 1e-3 everywhere (measured: 4e-7, 2e-5 and 1.3e-4; the
     tail is grazing incidence, where the discriminant cancels);
   * on the r = 1000 ground sphere the near root ``-b - sqrt(b*b - a*c)``
-    cancels catastrophically -- the JAX value itself moves by percents with
-    the contraction (measured: 99th percentile up to 0.02, maximum 0.06) --
-    so there the median error is held to 1e-4, the 90th percentile to 0.02
-    and the 99th to 0.2.
+    cancels catastrophically -- one ulp of any product moves the JAX value
+    by percents with the contraction (measured: 99th percentile up to
+    0.02, maximum 0.06) -- so there the port's t is held to a float64
+    NumPy witness of the same rays and the same sphere, which depends on
+    neither float32 arithmetic: median error 1e-4, 90th percentile 0.02,
+    99th 0.2 (measured: 6e-6, 1.4e-5 and 2.3e-5; hit and index stay held
+    to JAX).
 """
 
 import jax.numpy as jnp
@@ -96,7 +99,28 @@ def _both(scene_name, o, d, active, t_min=T_MIN):
     return [g.numpy() for g in got], [np.asarray(w) for w in want], radii
 
 
-def _check(got, want, radii, active):
+def _witness_t(scene_name, o, d, sb, t_min=T_MIN):
+    """float64 t of each lane's ray against the sphere ``sb`` (the nearest
+    root past t_min), from the same float32 rays and sphere table."""
+    psc = {"huge": lambda: pscene.huge_scene(0, device="cpu"),
+           "simple": lambda: pscene.simple_scene_cuda(device="cpu")
+           }[scene_name]()
+    cx, cy, cz, r = (p.numpy().astype(np.float64) for p in
+                     pseg.sphere_params_from_scene(psc)[:4])
+    o64, d64 = o.astype(np.float64), d.astype(np.float64)
+    oc = o64 - np.stack([cx[sb], cy[sb], cz[sb]])
+    a = (d64 * d64).sum(0)
+    b = (oc * d64).sum(0)
+    c = (oc * oc).sum(0) - r[sb] ** 2
+    sq = np.sqrt(np.maximum(b * b - a * c, 0.0))
+    near, far = (-b - sq) / a, (-b + sq) / a
+    return np.where(near > t_min, near, far)
+
+
+def _check(got, want, radii, active, witness=None):
+    """``witness``: the float64 t of the port's sphere on each lane
+    (``_witness_t``), which the ground class is held to; without it (the
+    callers in other files) the ground class is held to JAX."""
     (gh, gt, gs), (wh, wt, ws) = got, want
     act = np.ones_like(gh, bool) if active is None else active
     assert gh.dtype == np.int32 and gt.dtype == np.float32
@@ -120,22 +144,24 @@ def _check(got, want, radii, active):
     assert rel[small].max() <= 1e-3
     ground = agree & big
     if ground.any():
-        assert np.median(rel[ground]) <= 1e-4
-        assert np.percentile(rel[ground], 90) <= 0.02
-        assert np.percentile(rel[ground], 99) <= 0.2
+        ref = wt if witness is None else witness
+        rel_w = np.abs(gt - ref) / np.abs(ref)
+        assert np.median(rel_w[ground]) <= 1e-4
+        assert np.percentile(rel_w[ground], 90) <= 0.02
+        assert np.percentile(rel_w[ground], 99) <= 0.2
 
 
 @pytest.mark.parametrize("scene_name", ["simple", "huge"])
 def test_segment_closest_hit_matches_jax(scene_name):
     o, d, active = _rays(scene_name)
     got, want, radii = _both(scene_name, o, d, active)
-    _check(got, want, radii, active)
+    _check(got, want, radii, active, _witness_t(scene_name, o, d, got[2]))
 
 
 def test_segment_closest_hit_all_lanes_active_when_no_mask():
     o, d, _ = _rays("huge", seed=1)
     got, want, radii = _both("huge", o, d, None)
-    _check(got, want, radii, None)
+    _check(got, want, radii, None, _witness_t("huge", o, d, got[2]))
 
 
 def test_negative_radius_is_hit_from_inside():
