@@ -245,6 +245,31 @@ Phases (one JSON object per line on standard output):
                    render --profile of the 240x160 frame (a trace that
                    names closest_hit_kernel and shade_regen_kernel) and
                    whether the native image codec built.
+  sharded_path     the mesh of workers (parallel/mesh.py) at the main
+                   path's full width, pool 1<<15 a worker: (a) the
+                   one-card mesh bit-equal with render_wavefront's frame,
+                   and render --engine wavefront-sharded through the CLI
+                   writing that image; (b) four workers on the one card
+                   within rtol 2e-4 / atol 2e-5 of it (the largest
+                   difference printed, two runs hashing the same), tile
+                   ownership + the sorted kernel over four workers
+                   bit-equal with one worker's frame, and the tiled engine
+                   (kernel 3) over four workers, render_image_sharded at
+                   the training target's frame (1200x800 @ 8 spp, depth
+                   16), bit-equal with render(); (c) two processes sharing the card (gloo), rank
+                   0's frame bit-equal with the in-process 2-worker frame,
+                   each rank's wall time; (d) the tail reserve
+                   (reserve_frac 0.15) at one and four workers within 2e-6
+                   of the reserve-off frames, s/frame and occupancy with
+                   and without; (e) one train step (16384 px x 8 spp,
+                   depth 16, planar) over two workers, its gradients
+                   within rtol 2e-5 / atol 1e-7 of one device's; (f) the
+                   dual engine over two workers against one (spp cut to
+                   4, the width not), the frame rule; (g) kernel 2's fused
+                   and regen-only entries on a mid-frame state of worker 1
+                   of 4 (strided: first task P, stride 4P; tile:
+                   worker_base > 0) against their plain versions. None of
+                   this is a speed-up: the card box has one card.
 Then the ``kernels`` line (``launches`` from the main path's run for
 closest_hit, shade_regen and regen_only (once: the prologue), from the
 coherent path's full-width frames for closest_hit_list,
@@ -255,7 +280,11 @@ mega_bounce, ``launches_train_path`` beside it, ``launches_scatter_path``
 for closest_hit, shade_regen and regen_only, ``launches_surrogate_path``
 for intersect and closest_hit, ``launches_adaptive_path`` for closest_hit
 and ``launches_serve_path`` (one served main frame, counted by the server)
-for closest_hit, shade_regen and regen_only, every other number measured
+for closest_hit, shade_regen and regen_only, ``launches_sharded_path``
+(the sharded path's frames, through the API and the CLI, and train step)
+for closest_hit, shade_regen, regen_only, intersect, closest_hit_list and
+closest_hit_sorted, every other number
+measured
 in this run), the card's name and power limit as
 ``nvidia-smi`` gives them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -429,7 +458,7 @@ import time
 PHASES = ("kernels", "grad_vs_plain", "frame_vs_plain", "frame_vs_golden",
           "main_path", "coherent_path", "grouped_path", "mega_path",
           "scatter_path", "train_path", "surrogate_path", "cli_fit",
-          "adaptive_path", "serve_path")
+          "adaptive_path", "serve_path", "sharded_path")
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores and HBM bandwidth. The bounds below are stated against them.
@@ -2391,8 +2420,11 @@ def grad_vs_plain_phase(rt, torch, nvidia_smi: str):
     n_sph = scene.centers.shape[0]
     sphere_ids = torch.arange(n_sph, device=dev)
 
-    def by_index_add():
+    def by_index_add():  # the port's: a float64 accumulator, rounded once
         return intersect.sum_by_winner(idx64, rows, n_sph)
+
+    def by_index_add_f32():  # a float32 running sum, for comparison
+        return torch.zeros((n_sph, 4), device=dev).index_add_(0, idx64, rows)
 
     def by_onehot_matmul():
         onehot = (idx64[:, None] == sphere_ids[None, :]).to(torch.float32)
@@ -2403,9 +2435,13 @@ def grad_vs_plain_phase(rt, torch, nvidia_smi: str):
     sums = {"rays": n_step, "spheres": n_sph,
             "share_of_rays_on_sphere_0": float((idx64 == 0).float().mean()),
             "forms_agree": _rel_to_largest(by_index_add(),
-                                           by_onehot_matmul())}
+                                           by_onehot_matmul()),
+            "f32_sum_vs_f64": _rel_to_largest(by_index_add_f32(),
+                                              by_index_add())}
     sums["index_add_ms"] = cuda_time_ms(by_index_add, iters=20,
                                         queue_behind=True)
+    sums["index_add_f32_ms"] = cuda_time_ms(by_index_add_f32, iters=20,
+                                            queue_behind=True)
     sums["onehot_matmul_ms"] = cuda_time_ms(by_onehot_matmul, iters=20,
                                             queue_behind=True)
     torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -5286,6 +5322,419 @@ def serve_path_phase(rt, torch, nvidia_smi: str, adaptive_img=None):
     return mains[0]["launches"]
 
 
+# --------------------------------------------------------------------- #
+# sharded_path phase: the mesh of workers and the tail reserve
+# --------------------------------------------------------------------- #
+
+# The sharded path's bounds: a strided multi-worker frame against the
+# one-worker frame (the JAX package's tests/test_parallel.py, a pixel's
+# tasks added in another order), the reserve frame against the reserve-off
+# frame (its tests/test_wavefront.py) and a sharded train step's gradients
+# against one device's (its tests/test_parallel.py).
+SHARD_RTOL, SHARD_ATOL = 2e-4, 2e-5
+RESERVE_TOL = 2e-6
+GRAD_RTOL, GRAD_ATOL = 2e-5, 1e-7
+RESERVE_FRAC = 0.15
+SHARD_WORKERS = 4
+DUAL_SHARD_SPP = 4  # the host-bound dual frames, cut in spp (not width)
+# the kernels the sharded path must launch (its launch counts in the
+# kernels line): 1, 2 (fused and regen-only), 3 (the tiled engine), 4, 5
+SHARDED_KERNELS = ("closest_hit", "shade_regen", "regen_only", "intersect",
+                   "closest_hit_list", "closest_hit_sorted")
+
+SHARD_RANK = r"""
+import json, sys, time
+import numpy as np
+import torch
+coord, rank, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+t_start = time.perf_counter()
+from raytracinginoneweekend_tpu_torch.parallel import distributed
+distributed.initialize_distributed(coord, 2, rank, backend="gloo")
+import raytracinginoneweekend_tpu_torch as rt
+from raytracinginoneweekend_tpu_torch import cli, parallel
+w, h, spp, depth, pool = (int(a) for a in sys.argv[4:9])
+dev = torch.device("cuda")
+scene = cli._build_scene("huge", 0, dev)
+cam = cli._build_camera("cpu", w, h, dev)
+mesh = parallel.make_mesh()
+assert (mesh.size, mesh.first) == (2, rank), mesh
+secs = []
+for _ in range(2):  # the first loads the kernels and captures the graph
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = parallel.render_wavefront_sharded(
+        scene, cam, rt.key_words(0), mesh=mesh, width=w, height=h, spp=spp,
+        max_depth=depth, camera_mode="thinlens", options=rt.DEFAULT,
+        pool_size=pool)
+    torch.cuda.synchronize()
+    secs.append(time.perf_counter() - t0)
+if rank == 0:
+    np.save(out, img.cpu().numpy())
+torch.distributed.destroy_process_group()
+print(json.dumps({"rank": rank, "frame_seconds": secs,
+                  "process_seconds": time.perf_counter() - t_start}))
+"""
+
+
+def frame_hash(img) -> str:
+    import hashlib
+
+    return hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
+
+
+def close_frames(torch, got, want, rtol: float, atol: float) -> dict:
+    """got against want elementwise: the largest difference and whether
+    every element is within rtol / atol."""
+    diff = (got - want).abs()
+    return {"max_abs_diff": float(diff.max()),
+            "within": bool((diff <= atol + rtol * want.abs()).all()),
+            "bit_equal": bool(torch.equal(got, want))}
+
+
+def occupancy(stats_list) -> float:
+    """Traced lane-iterations over the lanes' iterations, all workers."""
+    return (sum(s["segments"] for s in stats_list)
+            / sum(s["iters"] * s["lanes"] for s in stats_list))
+
+
+def two_rank_frames(torch, frame: dict, pool: int) -> list:
+    """Two processes on the one card, each one worker of a 2-worker mesh
+    under a gloo process group -> [each rank's record], rank 0's frame
+    under its "img". A rank that fails fails the phase."""
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = os.path.join(tempfile.mkdtemp(prefix="rtw"), "rank0.npy")
+    args = [str(frame[k]) for k in ("width", "height", "spp", "depth")]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SHARD_RANK, f"127.0.0.1:{port}", str(rank),
+         out, *args, str(pool)], env=port_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    recs = []
+    try:
+        for rank, p in enumerate(procs):
+            said, err = p.communicate(timeout=300)
+            require(p.returncode == 0,
+                    f"rank {rank} returned {p.returncode}: {err[-3000:]}")
+            recs.append(json.loads(said.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs[0]["img"] = torch.from_numpy(np.load(out)).to("cuda")
+    return recs
+
+
+def sharded_train_step(rt, torch, mesh) -> dict:
+    """One train step's gradients at train_path's shape (huge scene, the
+    1200x800 camera, 16384 px x 8 spp, depth 16, the planar engine) from
+    perturbed parameters, one device against ``mesh``."""
+    from raytracinginoneweekend_tpu_torch import cli, optim
+    from raytracinginoneweekend_tpu_torch.optim import inverse
+
+    dev = torch.device("cuda")
+    w, h, depth = TRAIN["width"], TRAIN["height"], TRAIN["depth"]
+    scene = cli._build_scene("huge", 0, dev)
+    cam = cli._build_camera("cpu", w, h, dev)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    perturbed = scene
+    for name in ("albedo", "centers"):
+        leaf = getattr(scene, name)
+        noise = TRAIN["perturb"] * torch.randn(leaf.shape, generator=gen)
+        perturbed = perturbed._replace(**{name: leaf + noise.to(dev)})
+    ids = inverse.draw_pixel_batch((9, 9), w * h, TRAIN["batch_pixels"],
+                                   dev)
+    kw = dict(width=w, height=h, spp=TRAIN["spp"], max_depth=depth,
+              camera_mode="thinlens", options=rt.DEFAULT)
+    with torch.no_grad():
+        target = rt.render_pixels(scene, cam, ids, rt.key_words(0),
+                                  wave_spp=TRAIN["spp"], **kw)
+    out = {}
+    for key, m in (("one_device", None), ("mesh", mesh)):
+        params = optim.params_from_scene(perturbed, ("albedo", "centers"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = optim.render_loss(params, perturbed, cam, target, ids,
+                                 rt.key_words(1), engine="planar", mesh=m,
+                                 **kw)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[key] = {"seconds": time.perf_counter() - t0,
+                    "loss": float(loss.detach()),
+                    "grads": {k: v.grad for k, v in params.items()}}
+    res = {"workers": mesh.size, "batch_pixels": TRAIN["batch_pixels"],
+           "spp": TRAIN["spp"], "depth": depth,
+           "seconds_one_device": out["one_device"]["seconds"],
+           "seconds_mesh": out["mesh"]["seconds"],
+           "loss_one_device": out["one_device"]["loss"],
+           "loss_mesh": out["mesh"]["loss"], "leaves": {}}
+    ok = True
+    for k, want in out["one_device"]["grads"].items():
+        got = out["mesh"]["grads"][k]
+        diff = (got - want).abs()
+        within = bool((diff <= GRAD_ATOL + GRAD_RTOL * want.abs()).all())
+        res["leaves"][k] = {
+            "max_abs_diff": float(diff.max()),
+            "max_abs_grad": float(want.abs().max()),
+            "outside": int((diff > GRAD_ATOL + GRAD_RTOL * want.abs()).sum()),
+            "within": within}
+        ok &= within and bool(torch.isfinite(got).all())
+    res["ok"] = ok
+    return res
+
+
+def worker_offset_kernel2(rt, torch) -> dict:
+    """Kernel 2's fused and regen-only entries on a mid-frame state of
+    worker 1 of SHARD_WORKERS (strided: first task P, stride 4P; tile:
+    worker_base > 0), each against its plain version as in ``kernels``."""
+    from raytracinginoneweekend_tpu_torch.ops import cuda_segment, wavefront
+
+    w, h, spp, depth = (MAIN[k] for k in ("width", "height", "spp",
+                                          "depth"))
+    out = {}
+    for name, options in (
+            ("strided", rt.DEFAULT),
+            ("tile", dataclasses.replace(rt.DEFAULT, ownership="tile"))):
+        eng = wavefront.build_engine(
+            *eng_scene(rt, torch, w, h), width=w, height=h, spp=spp,
+            max_depth=depth, camera_mode="thinlens", options=options,
+            pool_size=1 << 15, worker_index=1, n_workers=SHARD_WORKERS,
+            device=torch.device("cuda"))
+        state = mid_frame_state(eng, 8)
+        seg = cuda_segment.segment_closest_hit(
+            tuple(state[4:10]), *eng.sphere_params[:4], eng.t_min,
+            active=state[3], table=eng.htable)
+        res = shade_regen_entries(torch, eng, state, seg, timed=False)
+        res["stride"], res["worker_base"] = eng.stride, eng.base
+        res["first_task"] = int(wavefront.engine_initial_state(eng)[0][0, 0])
+        out[name] = res
+        for entry in ("shade_regen", "regen_only"):
+            require(res[entry]["ok"]
+                    and res[entry]["max_abs_err"] <= RESERVE_TOL,
+                    f"{entry} at worker 1 of {SHARD_WORKERS} ({name}) "
+                    f"disagrees with its plain version: {res[entry]}")
+        require(res["launch_shapes_bit_equal"],
+                f"kernel 2 at worker 1 ({name}): a launch shape differs")
+    return out
+
+
+def sharded_cli_frame(rt, torch, want, pool: int) -> dict:
+    """``render --engine wavefront-sharded`` through the CLI at the main
+    frame (a mesh of every local card) -> its seconds and whether its PPM
+    is ``want`` quantized, as the CLI quantizes."""
+    from raytracinginoneweekend_tpu_torch import cli, kernels
+    from raytracinginoneweekend_tpu_torch.io.image import read_ppm
+
+    w, h, spp, depth = (MAIN[k] for k in ("width", "height", "spp",
+                                          "depth"))
+    out_ppm = os.path.join(kernels.BUILD_DIR, "chip_smoke_sharded.ppm")
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    if os.path.exists(out_ppm):
+        os.remove(out_ppm)
+    argv = ["render", "--scene", "huge", "--width", str(w), "--height",
+            str(h), "--spp", str(spp), "--depth", str(depth), "--engine",
+            "wavefront-sharded", "--pool-size", str(pool), "--out", out_ppm]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    require(rc == 0, f"{argv} returned {rc}")
+    u8 = rt.to_u8(want.reshape(h, w, 3)).cpu().numpy()
+    return {"argv": argv, "seconds": seconds,
+            "ppm_equals_one_card_mesh": bool((read_ppm(out_ppm) == u8).all())}
+
+
+def eng_scene(rt, torch, w, h):
+    from raytracinginoneweekend_tpu_torch import cli
+
+    dev = torch.device("cuda")
+    return (cli._build_scene("huge", 0, dev),
+            cli._build_camera("cpu", w, h, dev), rt.key_words(0))
+
+
+def sharded_path_phase(rt, torch, nvidia_smi: str):
+    from raytracinginoneweekend_tpu_torch import golden, kernels, parallel
+    from raytracinginoneweekend_tpu_torch.ops import wavefront_dual
+
+    w, h, spp, depth = (MAIN[k] for k in ("width", "height", "spp",
+                                          "depth"))
+    pool = 1 << 15
+    dev = torch.device("cuda")
+    scene, cam, key = eng_scene(rt, torch, w, h)
+    frame = dict(width=w, height=h, spp=spp, max_depth=depth,
+                 camera_mode="thinlens", pool_size=pool)
+    one = parallel.make_mesh()
+    four = parallel.make_mesh([dev] * SHARD_WORKERS)
+    two = parallel.make_mesh([dev] * 2)
+    require(one.size == 1 and four.size == SHARD_WORKERS,
+            f"the meshes: {one}, {four}")
+    tile_sorted = dataclasses.replace(rt.DEFAULT, ownership="tile",
+                                      hit_kernel="sorted")
+
+    def sharded(mesh, options=rt.DEFAULT, **kw):
+        return parallel.render_wavefront_sharded(
+            scene, cam, key, mesh=mesh, options=options, **frame, **kw)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    res = {}
+    kernels.reset_launches()
+    # (a) the one-card mesh against the unsharded frame
+    _, (base, base_st) = timed(lambda: rt.render_wavefront(
+        scene, cam, key, options=rt.DEFAULT, return_stats=True,
+        device=dev, **frame))
+    sec_base, _ = timed(lambda: rt.render_wavefront(
+        scene, cam, key, options=rt.DEFAULT, device=dev, **frame))
+    sharded(one)
+    sec_one, img_one = timed(lambda: sharded(one))
+    res["a_one_card_mesh"] = {
+        "seconds_per_frame": sec_one,
+        "unsharded_seconds_per_frame": sec_base,
+        **close_frames(torch, img_one, base, 0.0, 0.0)}
+    # (b) four workers on the one card; two runs hash the same
+    sec_four, (img_four, st4) = timed(lambda: sharded(four,
+                                                      return_stats=True))
+    img_four2 = sharded(four)
+    res["b_four_workers"] = {
+        "seconds_per_frame_first": sec_four,
+        **close_frames(torch, img_four, img_one, SHARD_RTOL, SHARD_ATOL),
+        "hash": frame_hash(img_four), "hash_again": frame_hash(img_four2),
+        "occupancy": occupancy(st4["workers"]),
+        "iters_by_worker": [s["iters"] for s in st4["workers"]]}
+    res["b_four_workers"]["seconds_per_frame"], _ = timed(
+        lambda: sharded(four))
+    # tile ownership + the sorted kernel: bit-equal with one worker
+    t1 = rt.render_wavefront(scene, cam, key, options=tile_sorted,
+                             device=dev, **frame)
+    t4 = sharded(four, tile_sorted)
+    res["b_tile_sorted"] = {**close_frames(torch, t4, t1, 0.0, 0.0),
+                            "seconds_per_frame": timed(
+                                lambda: sharded(four, tile_sorted))[0]}
+    # the tiled engine (kernel 3) over four workers against render(), at
+    # the training target's frame; rays_per_chunk is one worker's pixels,
+    # so render()'s chunks trace the same waves as the workers' shards
+    tcfg = rt.RenderConfig(
+        width=w, height=h, spp=TRAIN["target_spp"], max_depth=TRAIN["depth"],
+        camera_mode="thinlens", rays_per_chunk=w * h // SHARD_WORKERS,
+        options=dataclasses.replace(rt.DEFAULT, intersect="pallas"))
+    sec_t1, tiled1 = timed(lambda: rt.render(scene, cam, tcfg, key,
+                                             device=dev))
+    ix0 = kernels.LAUNCHES["intersect"]
+    sec_t4, tiled4 = timed(lambda: parallel.render_image_sharded(
+        scene, cam, tcfg, key, mesh=four))
+    res["b_tiled_four_workers"] = {
+        "spp": tcfg.spp, "depth": tcfg.max_depth,
+        "rays_per_chunk": tcfg.rays_per_chunk,
+        "seconds_unsharded": sec_t1, "seconds_four_workers": sec_t4,
+        "intersect_launches": kernels.LAUNCHES["intersect"] - ix0,
+        **close_frames(torch, tiled4, tiled1, 0.0, 0.0)}
+    # the CLI's sharded engine over every local card (the one H100): (a)
+    res["a_cli"] = sharded_cli_frame(rt, torch, img_one, pool)
+    # (d) the tail reserve at one and at four workers
+    _, (r1, r1_st) = timed(lambda: rt.render_wavefront(
+        scene, cam, key, options=rt.DEFAULT, reserve_frac=RESERVE_FRAC,
+        return_stats=True, device=dev, **frame))
+    sec_r1, _ = timed(lambda: rt.render_wavefront(
+        scene, cam, key, options=rt.DEFAULT, reserve_frac=RESERVE_FRAC,
+        device=dev, **frame))
+    r4, r4_st = sharded(four, reserve_frac=RESERVE_FRAC, return_stats=True)
+    sec_r4, _ = timed(lambda: sharded(four, reserve_frac=RESERVE_FRAC))
+    res["d_reserve"] = {
+        "reserve_frac": RESERVE_FRAC,
+        "one_worker": {**close_frames(torch, r1, base, RESERVE_TOL,
+                                      RESERVE_TOL),
+                       "seconds_per_frame": sec_r1,
+                       "seconds_per_frame_off": sec_base,
+                       "occupancy": occupancy([r1_st]),
+                       "occupancy_off": occupancy([base_st]),
+                       "iters": r1_st["iters"], "iters_off": base_st["iters"],
+                       "segments": r1_st["segments"],
+                       "segments_off": base_st["segments"]},
+        "four_workers": {**close_frames(torch, r4, img_four, RESERVE_TOL,
+                                        RESERVE_TOL),
+                         "seconds_per_frame": sec_r4,
+                         "seconds_per_frame_off":
+                             res["b_four_workers"]["seconds_per_frame"],
+                         "occupancy": occupancy(r4_st["workers"]),
+                         "occupancy_off": occupancy(st4["workers"])}}
+    # (f) the dual engine over two workers against one (spp cut)
+    dkw = dict(width=w, height=h, spp=DUAL_SHARD_SPP, max_depth=depth,
+               camera_mode="thinlens", options=rt.DEFAULT,
+               pool_size=DUAL_POOL)
+    sec_d1, d1 = timed(lambda: wavefront_dual.render_wavefront_dual(
+        scene, cam, key, device=dev, **dkw))
+    sec_d2, d2 = timed(lambda: parallel.render_wavefront_dual_sharded(
+        scene, cam, key, mesh=two, **dkw))
+    dcmp = golden.compare_frames(d2.cpu().numpy(), d1.cpu().numpy(),
+                                 atol=5e-4)
+    res["f_dual_two_workers"] = {
+        "spp": DUAL_SHARD_SPP, "pool_size_per_worker": DUAL_POOL,
+        "seconds_per_frame_one_worker": sec_d1,
+        "seconds_per_frame_two_workers": sec_d2, "frame_rule": dcmp,
+        "max_abs_diff": float((d2 - d1).abs().max())}
+    # (e) one train step's gradients over two workers against one device
+    res["e_train_step"] = sharded_train_step(rt, torch, two)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    # (c) two processes sharing the card, against the in-process frame
+    img_two = sharded(two)
+    ranks = two_rank_frames(torch, dict(width=w, height=h, spp=spp,
+                                        depth=depth), pool)
+    res["c_two_processes"] = {
+        "ranks": [{k: v for k, v in r.items() if k != "img"}
+                  for r in ranks],
+        **close_frames(torch, ranks[0]["img"], img_two, 0.0, 0.0)}
+    # (g) kernel 2 at worker 1 of 4
+    res["g_kernel2_worker_offset"] = worker_offset_kernel2(rt, torch)
+    emit({"phase": "sharded_path", "card": nvidia_smi, **MAIN,
+          "pool_size_per_worker": pool, "launches": launches, **res})
+
+    require(res["a_one_card_mesh"]["bit_equal"],
+            f"(a) the one-card mesh's frame is not the unsharded frame: "
+            f"{res['a_one_card_mesh']}")
+    require(res["a_cli"]["ppm_equals_one_card_mesh"],
+            f"(a) render --engine wavefront-sharded wrote another image: "
+            f"{res['a_cli']}")
+    require(res["b_tiled_four_workers"]["bit_equal"]
+            and res["b_tiled_four_workers"]["intersect_launches"] > 0,
+            f"(b) the tiled engine over four workers is not render()'s "
+            f"frame: {res['b_tiled_four_workers']}")
+    b = res["b_four_workers"]
+    require(b["within"] and b["hash"] == b["hash_again"]
+            and bool(torch.isfinite(img_four).all()),
+            f"(b) four workers on the card: {b}")
+    require(res["b_tile_sorted"]["bit_equal"],
+            f"(b) tile + sorted over four workers is not the one-worker "
+            f"frame: {res['b_tile_sorted']}")
+    require(res["c_two_processes"]["bit_equal"],
+            f"(c) rank 0's frame is not the in-process 2-worker frame: "
+            f"{res['c_two_processes']}")
+    d = res["d_reserve"]
+    require(d["one_worker"]["within"] and d["four_workers"]["within"]
+            and d["one_worker"]["segments"] == d["one_worker"][
+                "segments_off"],
+            f"(d) the reserve frames: {d}")
+    require(res["e_train_step"]["ok"],
+            f"(e) the sharded step's gradients: {res['e_train_step']}")
+    require(dcmp["ok"], f"(f) the dual engine over two workers: {dcmp}")
+    for name in SHARDED_KERNELS:
+        require(launches[name] > 0,
+                f"the sharded path launched no {name}: {launches}")
+    return {"launches": launches}
+
+
 # The full frame's mean against the 240x160 @ 8 spp frame's: two Monte-Carlo
 # estimates of nearly the same integral (the small one stops at depth 12).
 MEAN_TOL = 1e-3
@@ -5542,6 +5991,7 @@ def main(argv=None) -> int:
         "serve_path": lambda: serve_path_phase(
             rt, torch, nvidia_smi,
             (out.get("adaptive_path") or {}).get("img")),
+        "sharded_path": lambda: sharded_path_phase(rt, torch, nvidia_smi),
     }
     try:
         for phase in PHASES:
@@ -5593,6 +6043,12 @@ def main(argv=None) -> int:
         if name in ("closest_hit", "shade_regen", "regen_only"):
             # one served main frame, counted by the server
             k["launches_serve_path"] = out["serve_path"].get(name, 0)
+        if name in SHARDED_KERNELS:
+            # the mesh's frames through the API and the CLI, the
+            # reserve's, the tiled and the dual engine over workers and
+            # the sharded train step (sharded_path)
+            k["launches_sharded_path"] = \
+                out["sharded_path"]["launches"][name]
         if k["launches"] <= 0:
             print(f"chip_smoke: FAILED: kernel {name} was launched on no "
                   "path", file=sys.stderr)

@@ -6,15 +6,18 @@ Hopper, one slice at a time. It imports ``torch`` and ``numpy`` and nothing
 of JAX or of the JAX package. Modules keep the JAX package's names so that
 a reader finds the counterpart.
 
-Carried so far -- the forward wavefront render with its coherent-ray
-variants (``ops.wavefront_dual.render_wavefront_dual``, and through
+Carried -- all that the JAX package does: the forward wavefront render
+with its coherent-ray variants (``ops.wavefront_dual.render_wavefront_dual``, and through
 ``TraceOptions`` the sorted and mxu closest-hit kernels, tile ownership
 and the unfused step) and its scatter deposit for frames past the ledger
 cap, the tiled engine and the training path (``fit`` with the planar,
 tiled and regenerative-pool AD engines and the gradient surrogates,
 ops/silhouette.py and ops/branchprob.py), two-stage adaptive sampling
-(``adaptive.render_adaptive``), the render server (``serve.py``) and the
-native image codec (``native/``):
+(``adaptive.render_adaptive``), the render server (``serve.py``), the
+native image codec (``native/``), and several workers -- CUDA cards of one
+process and ``torch.distributed`` ranks -- with the tail reserve
+(``parallel/``: ``make_mesh`` and the sharded renders and train step,
+``initialize_distributed``, the dry run):
   Scenes:      Scene, simple_scene_cuda, simple_scene_cpu, huge_scene,
                validate_scene, scene_from_numpy
   Cameras:     Camera, make_camera, reference_cuda_camera,
@@ -23,6 +26,10 @@ native image codec (``native/``):
                TraceOptions + presets, key_words (the base key of a seed)
   Optimization: optim.fit, optim.make_train_step, optim.render_loss,
                optim.render_pixels_vjp, optim.save/load_checkpoint
+               (each takes mesh=)
+  Parallel:    parallel.make_mesh, render_sharded, render_image_sharded,
+               render_wavefront_sharded, render_wavefront_dual_sharded,
+               initialize_distributed
   Postprocess: to_u8, write_ppm, write_png
   CLI:         python -m raytracinginoneweekend_tpu_torch
                {render,bench,fit,serve} (render --adaptive, --profile;
@@ -50,3 +57,4 @@ from .ops.threefry import key_words  # noqa: F401
 from .ops.wavefront import render_wavefront  # noqa: F401
 from .render import render, render_pixels  # noqa: F401
 from . import optim  # noqa: F401
+from . import parallel  # noqa: F401

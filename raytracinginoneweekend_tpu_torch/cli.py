@@ -29,8 +29,12 @@ deposits by pixel by itself (no flag, as in the JAX CLI). ``render
 (adaptive.py; it ignores ``--engine`` and ``--stats``, as the JAX CLI
 does); ``render --profile DIR`` writes a torch.profiler trace of the
 render. ``serve`` runs the render server (serve.py) on one device, and
-``--via SOCKET`` forwards ``render``, ``bench`` or ``fit`` to it. The
-sharded engines come with a later slice of the port (ROADMAP.md).
+``--via SOCKET`` forwards ``render``, ``bench`` or ``fit`` to it.
+``--engine wavefront-sharded`` / ``wavefront-dual-sharded`` render over a
+mesh of workers (parallel/mesh.py): one a local CUDA card, or the one
+``--device`` asked for; under ``torchrun`` (``WORLD_SIZE`` > 1) each rank
+joins the process group -- NCCL, one rank a card, or gloo with
+``--device cpu`` -- and rank 0 writes the image.
 
 Examples:
   python -m raytracinginoneweekend_tpu_torch render --scene simple-cuda \
@@ -40,6 +44,8 @@ Examples:
   python -m raytracinginoneweekend_tpu_torch fit --scene simple-cuda \
       --width 200 --height 112 --params albedo,centers --steps 20 \
       --checkpoint fit.npz
+  torchrun --nproc-per-node 2 -m raytracinginoneweekend_tpu_torch render \
+      --scene huge --engine wavefront-sharded --out cover.png
   python -m raytracinginoneweekend_tpu_torch serve --socket /tmp/rtw.sock &
   python -m raytracinginoneweekend_tpu_torch render --via /tmp/rtw.sock \
       --scene huge --width 1200 --height 800 --spp 100 --depth 50 \
@@ -133,7 +139,8 @@ def _add_render_flags(p: argparse.ArgumentParser):
                         "wavefront-dual = the dual-pool engine (cone cull "
                         "+ list kernel on the camera rays); tiled = the "
                         "(N, 3) autograd-capable engine; the sharded "
-                        "engines are not ported yet and are refused")
+                        "engines run one worker a local CUDA card (or on "
+                        "--device alone), --pool-size lanes a worker")
     p.add_argument("--pool-size", type=int, default=1 << 15)
     p.add_argument("--fusion", default=None,
                    choices=["off", "bounce", "fused"],
@@ -191,6 +198,30 @@ def _add_render_flags(p: argparse.ArgumentParser):
                         "device with its kernels already loaded")
 
 
+def _process_group_up() -> bool:
+    """A torch.distributed process group is initialised (torchrun)."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+SHARDED_ENGINES = ("wavefront-sharded", "wavefront-dual-sharded")
+
+
+def _join_group(args) -> None:
+    """Under torchrun (WORLD_SIZE > 1) a sharded render joins the process
+    group before anything touches a card, so that each rank's first CUDA
+    use is on its own card (NCCL; gloo when the CPU was asked for)."""
+    if (args.adaptive or args.engine not in SHARDED_ENGINES
+            or int(os.environ.get("WORLD_SIZE", "1")) <= 1
+            or _process_group_up()):
+        return
+    from .parallel.distributed import initialize_distributed
+
+    cpu = args.device is not None and str(args.device).startswith("cpu")
+    initialize_distributed(backend="gloo" if cpu else None)
+
+
 def _render_image(args):
     """-> ((H, W, 3) linear radiance tensor on the device, RenderConfig)."""
     from .config import RenderConfig
@@ -198,11 +229,7 @@ def _render_image(args):
     from .ops.wavefront import render_wavefront
     from .utils.device import resolve_device
 
-    if not args.adaptive and args.engine not in (
-            "auto", "wavefront", "wavefront-dual", "tiled"):
-        raise NotImplementedError(
-            f"--engine {args.engine} is not ported yet (ROADMAP.md, "
-            "Queue 1: multi-GPU)")
+    _join_group(args)
     device = resolve_device(args.device)
     scene = _build_scene(args.scene, args.seed, device)
     camera_name = args.camera or ("cuda" if args.scene == "simple-cuda"
@@ -237,7 +264,21 @@ def _render_image(args):
               max_depth=args.depth, camera_mode=args.mode,
               options=options, pool_size=args.pool_size, device=device)
     key = key_words(args.seed)
-    if args.engine == "wavefront-dual":
+    if args.engine in SHARDED_ENGINES:
+        from .parallel import mesh as pmesh
+
+        if args.stats:
+            raise ValueError("--stats reports one engine's counters; run "
+                             "the unsharded engine for them")
+        # every local card (under a process group this rank's), or the
+        # one device asked for
+        mesh = pmesh.make_mesh(None if args.device is None else [device])
+        kw.pop("device")
+        fn = (pmesh.render_wavefront_sharded
+              if args.engine == "wavefront-sharded"
+              else pmesh.render_wavefront_dual_sharded)
+        img = fn(scene, cam, key, mesh=mesh, **kw)
+    elif args.engine == "wavefront-dual":
         from .ops.wavefront_dual import render_wavefront_dual
 
         if args.stats:
@@ -325,8 +366,11 @@ def cmd_render(args) -> int:
         img, _cfg = _render_image(args)
         u8 = to_u8(img, clamp=not args.no_clamp).cpu().numpy()  # waits
     dt = time.perf_counter() - t0
-    writer = write_png if args.out.endswith(".png") else write_ppm
-    writer(args.out, u8)
+    from .parallel.distributed import is_primary_host
+
+    if is_primary_host():
+        writer = write_png if args.out.endswith(".png") else write_ppm
+        writer(args.out, u8)  # one writer under a process group
     rays = args.width * args.height * args.spp
     print(f"wrote {args.out} ({args.width}x{args.height} @ {args.spp}spp, "
           f"depth {args.depth}) in {dt:.2f}s "

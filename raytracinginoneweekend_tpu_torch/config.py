@@ -8,9 +8,9 @@ so a configuration written for one package reads the same in the other.
 *corrected* physics; the reference renderer's exact behaviours are
 reproducible for validation via the presets below.
 
-``TraceOptions`` accepts every value the JAX package accepts. What the
-port's engines do not carry yet raises ``NotImplementedError`` at the
-engine's entry (``ops/wavefront.py``), never here.
+``TraceOptions`` accepts every value the JAX package accepts, and the
+port's engines carry every one; a combination the JAX engine refuses
+raises the same ``ValueError`` at the engine's entry (``ops/wavefront.py``).
 """
 
 from __future__ import annotations
@@ -24,11 +24,10 @@ class TraceOptions:
 
     Carried by every engine of the port: ``t_min``, ``scatter_sample``,
     ``sky``, ``refract``, ``sampling`` and the ``rr_*`` knobs. The
-    wavefront engine carries ``mega`` "fused" and "off", every
-    ``hit_kernel`` (with ``sorted_rows`` and ``sorted_ladder``), both
-    ``ownership`` layouts and ``resolve="onehot"``; ``mega="bounce"`` and
-    the other two ``resolve`` values wait for later slices of the port
-    (ROADMAP.md). The dual-pool engine reads the estimator switches only.
+    wavefront engine carries every ``mega``, every ``hit_kernel`` (with
+    ``sorted_rows`` and ``sorted_ladder``), both ``ownership`` layouts and
+    every ``resolve`` value. The dual-pool engine reads the estimator
+    switches only.
     The tiled engine (render.py, ops/integrate.py) carries
     ``sphere_block``, ``intersect`` and ``gather``; the wavefront and
     planar engines ignore those three, as
@@ -59,8 +58,8 @@ class TraceOptions:
     gather: str = "onehot"
     # Wavefront engine fusion level: "fused" = closest-hit kernel + ONE
     # shade/state/regen kernel per iteration; "off" = the unrotated step,
-    # closest-hit kernel + plain PyTorch; "bounce" (the JAX package's
-    # whole-bounce kernel) is not ported yet.
+    # regen-only, closest-hit and shade-only kernels; "bounce" = the
+    # regen-only kernel, then the whole bounce in one (ops/cuda_mega.py).
     mega: str = "fused"
     # Closest-hit kernel: "sublane" = the per-ray loop over the whole
     # sphere table; "mxu" = the same loop with the dot products regrouped
@@ -73,8 +72,8 @@ class TraceOptions:
     sorted_rows: int = 0
     sorted_ladder: tuple = (4,)
     # Winning-sphere parameter resolve. The JAX package's three values
-    # name three one-hot matmul forms of one exact gather; the port
-    # indexes the table directly and carries "onehot" only.
+    # name three one-hot matmul forms of one exact gather, which give the
+    # same frame; the port indexes the table directly for all three.
     resolve: str = "onehot"
     # Pixel-jitter sampling: "iid" (reference-faithful, the parity
     # default) or "stratified" (opt-in estimator change: pixel jitter,

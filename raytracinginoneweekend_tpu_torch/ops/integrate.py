@@ -47,7 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import TraceOptions
 from ..models.scene import Scene
 from . import math3, rng
-from .intersect import closest_hit_diff, hit_surface
+from .intersect import closest_hit_diff, gather_rows, hit_surface
 from .scatter import scatter
 
 SKY_WHITE = (1.0, 1.0, 1.0)
@@ -110,9 +110,9 @@ def _bounce_step(scene: Scene, options: TraceOptions, state, bounce: int,
                               scene.centers, scene.radii)
     mi = scene.material_index.to(torch.int64).index_select(0, idx64)
     mtype = scene.mtype.index_select(0, mi)
-    albedo = scene.albedo.index_select(0, mi)
-    fuzz = scene.fuzz.index_select(0, mi)
-    ior = scene.ior.index_select(0, mi)
+    albedo = gather_rows(scene.albedo, mi)
+    fuzz = gather_rows(scene.fuzz, mi)
+    ior = gather_rows(scene.ior, mi)
 
     # Per-bounce randomness (ops/rng.py draw-order contract v3): two raw
     # counter blocks under the ray key, tag TAG_BOUNCE + bounce.

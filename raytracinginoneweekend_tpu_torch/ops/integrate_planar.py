@@ -11,9 +11,10 @@ the wavefront engine's PLANAR formulation made reverse-mode differentiable.
     backward is the analytic implicit-function formula of
     ops/intersect.closest_hit_diff, in plain PyTorch -- O(N) elementwise
     plus one (N,) -> (S,) sum, and the kernel is never differentiated;
-  * per-ray sphere/material parameters are ONE ``index_select`` of a
-    differentiable (S, 10) table; autograd's backward of it is an
-    ``index_add_`` into the table's gradient. (The JAX package computes
+  * per-ray sphere/material parameters are ONE gather of a
+    differentiable (S, 10) table (``intersect.gather_rows``); its backward
+    sums the rows into the table's gradient in float64
+    (``intersect.sum_by_winner``). (The JAX package computes
     this gather as a one-hot matrix product because per-ray gathers are
     slow on a TPU; the values are the same.)
   * the scatter/material math is the wavefront engine's planar code with
@@ -48,7 +49,7 @@ from ..models.camera import Camera
 from ..models.scene import DIELECTRIC, METAL, Scene
 from . import planar, rng
 from .cuda_segment import segment_closest_hit
-from .intersect import sum_by_winner
+from .intersect import gather_rows, sum_by_winner
 
 LANES = 128
 SKY_WHITE = planar.SKY_WHITE
@@ -269,8 +270,8 @@ def _shade_step_planar(table: torch.Tensor, options: TraceOptions, state,
 
     # Gather of the winning sphere's geometry + material. The index is a
     # piecewise-constant function of the scene (no gradient); the TABLE
-    # carries the scene-leaf gradients (index_add_ in backward).
-    params = table.index_select(0, sb.reshape(-1).to(torch.int64))
+    # carries the scene-leaf gradients (sum_by_winner in backward).
+    params = gather_rows(table, sb.reshape(-1).to(torch.int64))
 
     def col(i):
         return params[:, i].reshape(shape)

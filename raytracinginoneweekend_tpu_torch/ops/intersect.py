@@ -108,15 +108,45 @@ def sum_by_winner(idx64, rows, n_spheres: int):
     """Per-sphere sums of per-ray rows: out[s] = sum of rows[i] over the
     rays with idx64[i] == s. idx64: (N,) int64; rows: (N,) or (N, K).
 
-    The (N,) -> (S,) half of both closest-hit backward passes. It is one
-    ``index_add_``: atomic adds on the card, so the order of summation --
-    the last bits of the sums -- changes from run to run. (The JAX package
-    takes the same sum as a one-hot matrix product; chip_smoke.py times
-    both forms on the card, PERF.md has the numbers.)
+    The (N,) -> (S,) half of both closest-hit backward passes (the per-ray
+    table gathers, ``gather_rows``, take the same sum). It is one
+    ``index_add_`` (atomic adds on the card) into a float64 accumulator,
+    rounded once to the rows' dtype: a float32 running sum of a train step's ~10^5 rows a sphere
+    carried rounding of ~3e-5 of the sum, which moved with the order of the
+    card's atomics and with a split of the rows over workers
+    (parallel/mesh.py); in float64 the sum is the same to the bit from run
+    to run, and a split sum agrees with the whole to its last rounding.
+    (The JAX package takes the same sum as a one-hot matrix product;
+    chip_smoke.py times both forms on the card, PERF.md has the numbers.)
     """
-    out = torch.zeros((n_spheres,) + tuple(rows.shape[1:]),
-                      dtype=rows.dtype, device=rows.device)
-    return out.index_add_(0, idx64, rows)
+    wide = torch.float64 if rows.dtype == torch.float32 else rows.dtype
+    out = torch.zeros((n_spheres,) + tuple(rows.shape[1:]), dtype=wide,
+                      device=rows.device)
+    return out.index_add_(0, idx64, rows.to(wide)).to(rows.dtype)
+
+
+class _GatherRows(torch.autograd.Function):
+    """table.index_select(0, idx64) with ``sum_by_winner`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, table, idx64):
+        ctx.save_for_backward(idx64)
+        ctx.n_rows = table.shape[0]
+        return table.index_select(0, idx64)
+
+    @staticmethod
+    def backward(ctx, g_rows):
+        (idx64,) = ctx.saved_tensors
+        return sum_by_winner(idx64, g_rows, ctx.n_rows), None
+
+
+def gather_rows(table, idx64):
+    """``table.index_select(0, idx64)`` whose backward is ``sum_by_winner``
+    (float64 accumulation, rounded once) rather than autograd's float32
+    ``index_add_``. The forward is the plain gather, so a forward-only
+    caller (``torch.no_grad``, a target render) pays nothing for it. The
+    per-ray gathers of scene parameters in the AD engines."""
+    return _GatherRows.apply(table, idx64)
 
 
 class _ClosestHitDiff(torch.autograd.Function):
@@ -206,8 +236,8 @@ def hit_surface(origin, direction, t, idx, hit, centers, radii):
     """
     t_safe = torch.where(hit, t, torch.ones_like(t))
     idx64 = idx.to(torch.int64)
-    c_hit = centers.index_select(0, idx64)
-    r_hit = radii.index_select(0, idx64)
+    c_hit = gather_rows(centers, idx64)
+    r_hit = gather_rows(radii, idx64)
     r_safe = torch.where(hit, r_hit, torch.ones_like(r_hit))
     p = origin + t_safe[:, None] * direction
     nrm = (p - c_hit) / r_safe[:, None]

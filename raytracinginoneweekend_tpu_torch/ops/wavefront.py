@@ -62,9 +62,30 @@ this engine produces the same per-ray radiance as the JAX package's; only
 float rounding of individual operations and the framebuffer accumulation
 order differ.
 
-What the port does not carry yet (``reserve_frac``, several workers, the
-other two ``resolve`` forms) raises NotImplementedError at the engine's
-entry (``_check_carried``).
+SEVERAL WORKERS (``worker_index`` of ``n_workers``; parallel/mesh.py runs
+one engine a worker): worker w's lane l owns tasks w*P + l, + n_workers*P,
+... (strided), or the worker's blocks start at worker_base = w * nb_local *
+T_b (tile). A worker's ledger holds only its own cells (``ledger_cell``:
+its rounds of P lanes, or its blocks, then its reserve slice); at the fold
+they are copied to their task ids in a zeroed task-indexed array, whose
+fold is the one-worker fold: plain indexed writes, no float atomics, and
+the workers' partial frames are summed in worker order.
+
+THE TAIL RESERVE (``reserve_frac``, strided ownership only; inert under
+tile ownership as in the JAX package): each worker withholds its slice of
+the last ``reserve_frac`` of the task space from its lanes' sequences, and
+once an epoch, after the flush, lanes that are idle with their own
+sequence exhausted take consecutive reserve ids by cumsum rank
+(``grant``). The grant is branch-free -- with no taker it is a no-op of
+masks -- so it runs inside the captured epoch, and the taking lanes'
+camera rays come from kernel 2's regen-only entry, the arithmetic of every
+other camera ray. A reserve task has a ledger cell of its own like any
+other (one worker: its task id), so the reserve frame is the reserve-off
+frame to the bit.
+
+``resolve`` ("onehot", "split", "f32") picks among the JAX package's
+one-hot matrix forms of the winner lookup, all exact gathers that give the
+same frame; the port's lookup is a direct index, the same for all three.
 """
 
 from __future__ import annotations
@@ -79,7 +100,7 @@ from .. import kernels
 from ..config import TraceOptions
 from ..models.camera import Camera
 from ..models.scene import Scene
-from ..utils.device import resolve_device
+from ..utils.device import on_device, resolve_device
 from . import cull
 from .cuda_fused import (ACT, N_BASE, pack_camera, regen, regen_reference,
                          shade_regen, shade_regen_reference, shade_update,
@@ -99,8 +120,9 @@ TASK_SAMPLES = 16  # samples of one pixel accumulated per task (in-register)
 FLUSH_EVERY = 32   # inner iterations per epoch (pending->ledger cadence)
 N_SLOTS = 2        # pending slots per lane (task-done buffering)
 
-# Ledger cap: a frame's task count must fit 3 f32 ledger channels under
-# this budget, else the engine deposits by pixel (deposit="scatter").
+# Ledger cap: the ledger deposit's largest array -- its cells, or under
+# several workers the fold's task-indexed array -- must fit 3 f32 channels
+# under this budget, else the engine deposits by pixel (deposit="scatter").
 LEDGER_CAP_BYTES = 512 << 20
 
 # Pool granularity in rows of 128 lanes: the JAX package's kernel block
@@ -122,14 +144,8 @@ def pool_lanes(pool_size: int, width: int, height: int, spp: int,
     return -(-p // (rows * LANES)) * (rows * LANES)
 
 
-def _check_carried(options: TraceOptions, n_workers: int,
-                   reserve_frac) -> None:
-    """The JAX engine's own refusals, then -- by name -- what later slices
-    of the port bring."""
-    def later(what, queue):
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP.md, {queue})")
-
+def _check_options(options: TraceOptions) -> None:
+    """The JAX engine's own refusals."""
     if options.mega == "bounce":
         if options.rr_terminate:
             raise ValueError(
@@ -142,34 +158,29 @@ def _check_carried(options: TraceOptions, n_workers: int,
         if options.hit_kernel == "sorted":
             raise ValueError("hit_kernel='sorted' is implemented for "
                              "mega='fused' and mega='off' only")
-    if options.resolve != "onehot":
-        later(f"resolve={options.resolve!r}", "Queue 1: code the port "
-              "does not carry -- the winner lookup is a direct index")
-    if reserve_frac:
-        later("reserve_frac", "Queue 1: ablation engines")
-    if n_workers != 1:
-        later("n_workers > 1", "Queue 1: multi-GPU")
 
 
-def first_tasks(p: int, device, own_bl: int = 0, own_tb: int = 0):
-    """(R, 128) i32 plane of every lane's FIRST task id (one worker):
-    the lane index under strided ownership; under tile ownership
-    (own_bl > 0) ``(l // own_bl) * own_tb + l % own_bl``."""
+def first_tasks(p: int, device, own_bl: int = 0, own_tb: int = 0,
+                base: int = 0):
+    """(R, 128) i32 plane of every lane's FIRST task id: ``base`` (the
+    worker's offset: worker_index * P strided, worker_base under tile
+    ownership) plus the lane index under strided ownership, or under tile
+    ownership (own_bl > 0) plus ``(l // own_bl) * own_tb + l % own_bl``."""
     lane = torch.arange(p, dtype=torch.int32, device=device)
     if own_bl:
         blk = torch.div(lane, own_bl, rounding_mode="floor")
         lane = blk * own_tb + (lane - blk * own_bl)
-    return lane.reshape(p // LANES, LANES)
+    return (lane + base).reshape(p // LANES, LANES)
 
 
 def initial_lane_state(p: int, n_slots: int, device, own_bl: int = 0,
-                       own_tb: int = 0) -> tuple:
+                       own_tb: int = 0, base: int = 0) -> tuple:
     """The all-idle lane state before the first regen: every lane will
     acquire the first task of its own sequence (``first_tasks``)."""
     shape = (p // LANES, LANES)
     state = [torch.zeros(shape, dtype=dt, device=device)
              for dt in state_dtypes(n_slots)]
-    state[0] = first_tasks(p, device, own_bl, own_tb)  # nxt
+    state[0] = first_tasks(p, device, own_bl, own_tb, base)  # nxt
     state[1].fill_(-1)   # task (-1 = none)
     state[7].fill_(1.0)  # direction (non-degenerate dummy)
     for j in range(n_slots):
@@ -217,10 +228,15 @@ class Engine(NamedTuple):
     n_tasks: int       # task ids run over [0, n_tasks) (padded under tile)
     tpp: int           # tasks per pixel
     n_k: int           # ledger rounds (max tasks per lane)
+    n_workers: int     # >1: the ledger holds this worker's cells only
     deposit: str       # "ledger" or "scatter"
     stride: int        # task-id step between a lane's consecutive tasks
     own_bl: int        # lanes per tile-ownership block (0 = strided)
     own_tb: int        # task ids per tile-ownership block
+    base: int          # this worker's first task offset (first_tasks)
+    owned_end: int     # strided: the lanes' own sequences end here
+    res_start: int     # this worker's reserve slice [res_start, res_end)
+    res_end: int       # (res_start == res_end: no reserve)
     width: int
     height: int
     flush_every: int
@@ -246,7 +262,8 @@ class Engine(NamedTuple):
 def build_engine(scene: Scene, cam: Camera, base_key, *, width: int,
                  height: int, spp: int, max_depth: int, camera_mode: str,
                  options: TraceOptions, pool_size: int = 1 << 15,
-                 n_workers: int = 1, task_samples: int | None = None,
+                 worker_index: int = 0, n_workers: int = 1,
+                 task_samples: int | None = None,
                  flush_every: int | None = None,
                  pending_slots: int | None = None,
                  deposit: str | None = None,
@@ -254,7 +271,10 @@ def build_engine(scene: Scene, cam: Camera, base_key, *, width: int,
                  graph: bool = True, device=None) -> Engine:
     """Validate a frame's configuration and prepare its Engine (arguments
     as ``wavefront_fb``)."""
-    _check_carried(options, n_workers, reserve_frac)
+    _check_options(options)
+    if not 0 <= worker_index < n_workers:
+        raise ValueError(f"worker_index={worker_index} is not one of "
+                         f"{n_workers} workers")
     device = resolve_device(device)
     n_pixels = width * height
     task_samples = min(task_samples or TASK_SAMPLES, spp)
@@ -269,33 +289,51 @@ def build_engine(scene: Scene, cam: Camera, base_key, *, width: int,
     p = pool_lanes(pool_size, width, height, spp, ROWS_DEFAULT, task_samples)
     sorted_rows = options.sorted_rows or ROWS_DEFAULT
     tile_kw = {}
+    res_start = res_end = 0
     if options.ownership == "tile":
         # Tasks run over the 32x32-tile virtual pixel grid; each ownership
         # block of own_bl lanes owns a CONTIGUOUS tile-order range of T_b
         # task ids. T_b is a multiple of lcm(own_bl, tpp), so every
         # block's range is whole rounds of its lanes and whole virtual
         # pixels. Virtual pixels outside the image trace normally and drop
-        # at the fold.
+        # at the fold. The blocks of all workers share the task space.
         tiles_x, _tiles_y, n_vp = cull.virtual_grid(width, height)
         own_bl = min(sorted_rows * LANES, p)
         if p % own_bl:
             raise ValueError(f"the pool's {p} lanes do not divide into "
                              f"ownership blocks of {own_bl}")
         nb_local = p // own_bl
+        nb_global = n_workers * nb_local
         align = own_bl * tpp // math.gcd(own_bl, tpp)
-        own_tb = -(-(n_vp * tpp) // (nb_local * align)) * align
+        own_tb = -(-(n_vp * tpp) // (nb_global * align)) * align
         n_k = own_tb // own_bl         # ledger rounds per lane
-        n_tasks = nb_local * own_tb    # padded task-id space
+        n_tasks = nb_global * own_tb   # padded task-id space
         stride = own_bl                # within-block stride
+        base = worker_index * nb_local * own_tb
+        owned_end = n_tasks
         tile_kw = dict(own_bl=own_bl, t_b=own_tb, tiles_x=tiles_x,
-                       worker_base=0)
+                       worker_base=base)
     else:
         own_bl = own_tb = 0
-        stride = p
-        n_k = -(-n_tasks // p)
+        stride = n_workers * p
+        base = worker_index * p
+        owned_end = n_tasks
+        if reserve_frac:
+            # the JAX engine's split: every worker's slice is equal, and
+            # the lanes' own sequences end where the reserve begins
+            per_worker = int(n_tasks * reserve_frac) // n_workers
+            if per_worker and n_tasks - n_workers * per_worker > 0:
+                owned_end = n_tasks - n_workers * per_worker
+                res_start = owned_end + worker_index * per_worker
+                res_end = res_start + per_worker
+        n_k = -(-owned_end // stride)
 
     if deposit in (None, "auto"):
-        deposit = ("ledger" if 3 * 4 * n_k * p <= LEDGER_CAP_BYTES
+        # the ledger's largest array: its cells (one worker: n_k*P, or
+        # n_tasks with a reserve) or, under several workers, the fold's
+        # n_tasks array
+        cells = max(n_k * p + res_end - res_start, n_tasks)
+        deposit = ("ledger" if 3 * 4 * cells <= LEDGER_CAP_BYTES
                    else "scatter")
     if deposit not in ("ledger", "scatter"):
         raise ValueError(f"unknown deposit mode: {deposit!r}")
@@ -316,7 +354,7 @@ def build_engine(scene: Scene, cam: Camera, base_key, *, width: int,
     else:
         htable = hit_table(*geom)
     regen_kw = dict(width=width, height=height, spp=spp,
-                    task_samples=task_samples, tpp=tpp, n_tasks=n_tasks,
+                    task_samples=task_samples, tpp=tpp, n_tasks=owned_end,
                     n_slots=n_slots, stride=stride, camera_mode=camera_mode,
                     sampling=options.sampling, **tile_kw)
     shade_kw = dict(max_depth=max_depth,
@@ -331,8 +369,10 @@ def build_engine(scene: Scene, cam: Camera, base_key, *, width: int,
     step_kw = {**shade_kw, **regen_kw}
     return Engine(
         device=device, lanes=p, n_slots=n_slots, n_tasks=n_tasks, tpp=tpp,
-        n_k=n_k, deposit=deposit, stride=stride, own_bl=own_bl,
-        own_tb=own_tb, width=width, height=height,
+        n_k=n_k, n_workers=n_workers, deposit=deposit, stride=stride,
+        own_bl=own_bl,
+        own_tb=own_tb, base=base, owned_end=owned_end, res_start=res_start,
+        res_end=res_end, width=width, height=height,
         flush_every=flush_every or FLUSH_EVERY,
         sphere_params=sphere_params, htable=htable,
         table=sphere_table(sphere_params),
@@ -347,7 +387,7 @@ def build_engine(scene: Scene, cam: Camera, base_key, *, width: int,
 def engine_initial_state(eng: Engine) -> tuple:
     """The all-idle lane state of this engine's ownership."""
     return initial_lane_state(eng.lanes, eng.n_slots, eng.device,
-                              eng.own_bl, eng.own_tb)
+                              eng.own_bl, eng.own_tb, eng.base)
 
 
 def _on_card(eng: Engine) -> bool:
@@ -502,6 +542,8 @@ def fold_ledger(eng: Engine, ledger: torch.Tensor) -> torch.Tensor:
     holds pixel sums: its dump columns are dropped."""
     if eng.deposit == "scatter":
         return ledger[:, :eng.width * eng.height].t().contiguous()
+    if eng.n_workers > 1:
+        ledger = spread_cells(eng, ledger)
     per_vp = ledger[:, :eng.n_tasks].reshape(3, -1, eng.tpp).sum(dim=2)
     if eng.own_bl:
         tiles_x, tiles_y, n_vp = cull.virtual_grid(eng.width, eng.height)
@@ -515,34 +557,85 @@ def fold_ledger(eng: Engine, ledger: torch.Tensor) -> torch.Tensor:
 
 class Ledger(NamedTuple):
     """A frame's deposit. Under ``deposit="ledger"`` the task ledger: one
-    cell per task id, plus one row of P dump cells (cell n_tasks + lane)
-    that free slots write a zero into, so the flush is one unconditional
-    indexed copy with unique indices: no atomics, no device->host read.
-    Under ``deposit="scatter"`` one cell per pixel plus one dump cell per
-    pending slot of the pool (columns H*W ...), where every value that
-    does not land on a pixel goes (``scatter_flush``)."""
+    cell per task this worker may trace (``ledger_cell``; one worker: the
+    task id), plus one row of P dump cells (after them) that free slots
+    write a zero into, so the flush is one unconditional indexed copy with
+    unique indices: no atomics, no device->host read. Under
+    ``deposit="scatter"`` one cell per pixel plus one dump cell per pending
+    slot of the pool (columns H*W ...), where every value that does not
+    land on a pixel goes (``scatter_flush``)."""
 
-    cells: torch.Tensor   # (3, n_tasks + P), scatter (3, H*W + P*n_slots)
-    dump: object          # ledger: (P,) i64 n_tasks + lane; scatter: None
+    cells: torch.Tensor   # (3, own_cells + P), scatter (3, H*W + P*n_slots)
+    dump: object          # ledger: (P,) i64 own_cells + lane; scatter: None
     block_end: object     # where each lane's own task sequence ends
+    res_next: object      # () i32 next reserve id to grant (None: none)
+    res_end: int          # the end of this worker's reserve slice
+
+
+def own_cells(eng: Engine) -> int:
+    """The ledger's task cells: every task id for one worker; for several,
+    this worker's rounds of P lanes (its blocks under tile ownership) and
+    its reserve slice."""
+    if eng.n_workers == 1:
+        return eng.n_tasks
+    return eng.n_k * eng.lanes + eng.res_end - eng.res_start
+
+
+def ledger_cell(eng: Engine, task: torch.Tensor) -> torch.Tensor:
+    """Task ids (int64, this worker's own) -> their ledger cells. One
+    worker: the id. Several: tile ownership counts from worker_base;
+    strided ownership puts round k's lanes at k*P + lane and the reserve
+    slice after the rounds."""
+    if eng.n_workers == 1:
+        return task
+    if eng.own_bl:
+        return task - eng.base
+    rnd = torch.div(task, eng.stride, rounding_mode="floor")
+    own = rnd * eng.lanes + task - rnd * eng.stride - eng.base
+    return torch.where(task >= eng.owned_end,
+                       task - eng.res_start + eng.n_k * eng.lanes, own)
+
+
+def spread_cells(eng: Engine, cells: torch.Tensor) -> torch.Tensor:
+    """A worker's ledger cells -> a (3, n_tasks) ledger indexed by task id,
+    zero at every other worker's tasks (``ledger_cell`` inverted; a plain
+    indexed copy). Cells of rounds past the lanes' own sequences were never
+    written and go to one extra column, dropped."""
+    n_own, device = own_cells(eng), cells.device
+    cell = torch.arange(n_own, dtype=torch.int64, device=device)
+    if eng.own_bl:
+        task = cell + eng.base
+    else:
+        rounds = eng.n_k * eng.lanes
+        rnd = torch.div(cell, eng.lanes, rounding_mode="floor")
+        task = eng.base + cell - rnd * eng.lanes + rnd * eng.stride
+        task = torch.where(task >= eng.owned_end, eng.n_tasks, task)
+        task = torch.where(cell >= rounds, cell - rounds + eng.res_start,
+                           task)
+    full = torch.zeros((3, eng.n_tasks + 1), dtype=cells.dtype,
+                       device=device)
+    return full.index_copy_(1, task, cells[:, :n_own])[:, :eng.n_tasks]
 
 
 def new_ledger(eng: Engine) -> Ledger:
-    p, n_tasks, device = eng.lanes, eng.n_tasks, eng.device
+    p, n_own, device = eng.lanes, own_cells(eng), eng.device
     if eng.own_bl:
-        block_end = (first_tasks(p, device, eng.own_bl, eng.own_tb)
+        block_end = (first_tasks(p, device, eng.own_bl, eng.own_tb, eng.base)
                      // eng.own_tb + 1) * eng.own_tb
     else:
-        block_end = n_tasks
+        block_end = eng.owned_end
+    res_next = (torch.full((), eng.res_start, dtype=torch.int32,
+                           device=device)
+                if eng.res_end > eng.res_start else None)
     if eng.deposit == "scatter":
         return Ledger(torch.zeros((3, eng.width * eng.height
                                    + p * eng.n_slots),
                                   dtype=torch.float32, device=device),
-                      None, block_end)
+                      None, block_end, res_next, eng.res_end)
     return Ledger(
-        torch.zeros((3, n_tasks + p), dtype=torch.float32, device=device),
-        torch.arange(n_tasks, n_tasks + p, dtype=torch.int64, device=device),
-        block_end)
+        torch.zeros((3, n_own + p), dtype=torch.float32, device=device),
+        torch.arange(n_own, n_own + p, dtype=torch.int64, device=device),
+        block_end, res_next, eng.res_end)
 
 
 def task_pixels(eng: Engine, task: torch.Tensor) -> torch.Tensor:
@@ -613,7 +706,8 @@ def flush(eng: Engine, ledger: Ledger, state: tuple) -> None:
     for pt, pr, pg, pb in slots:
         if eng.deposit != "scatter":
             pt_flat = pt.reshape(-1)
-            cell = torch.where(pt_flat >= 0, pt_flat.to(torch.int64),
+            cell = torch.where(pt_flat >= 0,
+                               ledger_cell(eng, pt_flat.to(torch.int64)),
                                ledger.dump)
             ledger.cells.index_copy_(1, cell, torch.stack(
                 [pr.reshape(-1), pg.reshape(-1), pb.reshape(-1)]))
@@ -623,11 +717,53 @@ def flush(eng: Engine, ledger: Ledger, state: tuple) -> None:
         pb.zero_()
 
 
+def pending(ledger: Ledger, state: tuple) -> torch.Tensor:
+    """Anything left to trace? A bool on the device (nothing read)."""
+    nxt, task, _sid, act = state[:4]
+    left = ((act > 0).any() | (task >= 0).any()
+            | (nxt < ledger.block_end).any())
+    if ledger.res_next is not None:
+        left = left | (ledger.res_next < ledger.res_end)
+    return left
+
+
 def more(ledger: Ledger, state: tuple) -> bool:
     """Anything left to trace? One device->host read."""
+    return bool(pending(ledger, state).item())
+
+
+def grant(eng: Engine, ledger: Ledger, state: tuple) -> tuple:
+    """The tail reserve's grant, once an epoch after the flush (the JAX
+    engine's ``grant``): lanes that are idle with no task and their own
+    sequence exhausted take consecutive reserve ids by cumsum rank, up to
+    the end of this worker's slice, and are issued their first camera ray.
+
+    Branch-free, so an epoch with it is captured as a CUDA graph: with no
+    taker every select keeps its lane. The taking lanes' ``nxt`` is set to
+    their grant, every other lane past its own sequence is pushed past the
+    whole task space, and one regen whose sequences end at the slice's end
+    then acquires exactly the grants -- through kernel 2's regen-only entry
+    on the card, so a reserve task's camera ray has the arithmetic of every
+    other. That regen also does for the other lanes what the next step's
+    would (a finished task to a slot, the next sample, the next own task):
+    it moves when a lane traces what, never what it traces."""
     nxt, task, _sid, act = state[:4]
-    return bool(((act > 0).any() | (task >= 0).any()
-                 | (nxt < ledger.block_end).any()).item())
+    idle_ex = (act == 0) & (task < 0) & (nxt >= eng.owned_end)
+    flat = idle_ex.reshape(-1).to(torch.int32)
+    rank = (torch.cumsum(flat, 0, dtype=torch.int32) - flat).reshape(
+        idle_ex.shape)
+    gid = ledger.res_next + rank
+    take = idle_ex & (gid < eng.res_end)
+    past = torch.full_like(nxt, eng.n_tasks)
+    nxt.copy_(torch.where(take, gid, torch.where(nxt >= eng.owned_end, past,
+                                                 nxt)))
+    ledger.res_next.add_(take.sum(dtype=torch.int32))
+    kw = dict(eng.regen_kw, n_tasks=eng.res_end)
+    if eng.plain:
+        return regen_reference(state, eng.camvec, eng.base_words, **kw)
+    card = _on_card(eng)
+    return regen(state, eng.camvec, eng.base_words,
+                 out=state if card else None, pdl=_pdl(eng), **kw)
 
 
 def engine_epoch(eng: Engine, state: tuple, ledger: Ledger, sortstate=None,
@@ -635,10 +771,10 @@ def engine_epoch(eng: Engine, state: tuple, ledger: Ledger, sortstate=None,
     """One epoch: the sorted kernel's sort state from the epoch's first
     lane state (``engine_sortstate``; ``sortstate`` passes one in),
     ``flush_every`` iterations (under the unrotated steps a regen before
-    each segment), then the flush -> the next lane state (on the card the
-    same planes, updated in place). ``segs``: an optional device scalar
-    that counts the lanes that trace (after the regen under the unrotated
-    steps)."""
+    each segment), the flush, then with a reserve the grant -> the next
+    lane state (on the card the same planes, updated in place). ``segs``:
+    an optional device scalar that counts the lanes that trace (after the
+    regen under the unrotated steps)."""
     if sortstate is None:
         sortstate = engine_sortstate(eng, state)
     for _ in range(eng.flush_every):
@@ -648,6 +784,8 @@ def engine_epoch(eng: Engine, state: tuple, ledger: Ledger, sortstate=None,
             segs += state[ACT].sum()
         state = engine_segment(eng, state, sortstate)
     flush(eng, ledger, state)
+    if ledger.res_next is not None:
+        state = grant(eng, ledger, state)
     return state
 
 
@@ -710,10 +848,13 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *,
         multiple).
       task_samples, flush_every, pending_slots: the decomposition's
         constants (None = TASK_SAMPLES, FLUSH_EVERY, N_SLOTS).
-      deposit: None / "auto" (the ledger while 3*4*n_k*P bytes fit
-        LEDGER_CAP_BYTES, else "scatter"), "ledger" or "scatter".
-      n_workers, reserve_frac: accepted at their defaults only (what the
-        JAX package does with them is not ported yet).
+      deposit: None / "auto" (the ledger while 3*4*max(n_k*P + reserve,
+        n_tasks) bytes fit LEDGER_CAP_BYTES, else "scatter"), "ledger" or
+        "scatter".
+      worker_index, n_workers: this worker of how many (the module
+        docstring; parallel/mesh.py sums the workers' partial frames).
+      reserve_frac: the tail reserve's share of the task space (None or
+        0 = off; inert under tile ownership; ``grant``).
       plain: run the kernels' plain PyTorch versions whatever the device
         -- the reference a frame of the kernels is held against.
       graph: on the card, replay every epoch after the first as a CUDA
@@ -735,35 +876,70 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *,
         pending slot (N_SLOTS of them; a lane with every slot occupied
         idles until the epoch flush);
       * once per EPOCH pendings are flushed into the deposit. In the
-        ledger THE CELL INDEX IS THE TASK ID ITSELF. Strided: task id =
-        k*P + lane. Tile: task id = b*T_b + k*own_bl + lane % own_bl with
-        b = lane // own_bl and T_b = n_k*own_bl, so block b's cells are the
-        range [b*T_b, (b+1)*T_b). Either way every id has one owner and a
+        ledger of one worker THE CELL INDEX IS THE TASK ID ITSELF.
+        Strided: task id = k*P + lane. Tile: task id = b*T_b + k*own_bl +
+        lane % own_bl with b = lane // own_bl and T_b = n_k*own_bl, so
+        block b's cells are the range [b*T_b, (b+1)*T_b). (Several
+        workers: ``ledger_cell``.) Either way every id has one owner and a
         task finishes once, so every cell is written exactly once. In the
         scatter deposit (past the cap) the cell is the pixel.
     """
-    eng = build_engine(scene, cam, base_key, **config)
-    ledger = new_ledger(eng)
-    segs = (torch.zeros((), dtype=torch.int64, device=eng.device)
-            if return_stats else None)
-    state = engine_prologue(eng)
-    iters, graph, per_epoch = 0, None, None
-    while more(ledger, state):
-        if graph is None and iters and epoch_graphable(eng):
-            graph, per_epoch = capture_epoch(eng, state, ledger, segs)
-        if graph is not None:
-            graph.replay()
-            kernels.LAUNCHES.update(
-                kernels.add_launches(kernels.LAUNCHES, per_epoch))
-        else:
-            state = engine_epoch(eng, state, ledger, segs=segs)
-        iters += eng.flush_every
+    run = FrameRun(build_engine(scene, cam, base_key, **config),
+                   return_stats)
+    while run.more():
+        run.epoch()
+    fb = run.framebuffer()
+    return (fb, run.stats()) if return_stats else fb
 
-    fb = fold_ledger(eng, ledger.cells)
-    if return_stats:
-        return fb, {"iters": iters, "segments": int(segs.item()),
-                    "lanes": eng.lanes}
-    return fb
+
+class FrameRun:
+    """One worker's frame in flight: its engine, deposit and lane state,
+    and on the card the epoch captured as a CUDA graph after the first
+    eager one. ``wavefront_fb`` steps one; parallel/mesh.py steps one per
+    worker in turn, every worker's epoch before any termination read."""
+
+    def __init__(self, eng: Engine, return_stats: bool = False):
+        self.eng = eng
+        with on_device(eng.device):
+            self.ledger = new_ledger(eng)
+            self.segs = (torch.zeros((), dtype=torch.int64,
+                                     device=eng.device)
+                         if return_stats else None)
+            self.state = engine_prologue(eng)
+        self.iters, self.graph, self.per_epoch = 0, None, None
+
+    def pending(self) -> torch.Tensor:
+        """Anything left to trace, as a bool on the device (no read)."""
+        with on_device(self.eng.device):
+            return pending(self.ledger, self.state)
+
+    def more(self) -> bool:
+        return bool(self.pending().item())
+
+    def epoch(self) -> None:
+        """Run (or replay) one epoch; nothing is read to the host."""
+        eng = self.eng
+        with on_device(eng.device):
+            if self.graph is None and self.iters and epoch_graphable(eng):
+                self.graph, self.per_epoch = capture_epoch(
+                    eng, self.state, self.ledger, self.segs)
+            if self.graph is not None:
+                self.graph.replay()
+                kernels.LAUNCHES.update(
+                    kernels.add_launches(kernels.LAUNCHES, self.per_epoch))
+            else:
+                self.state = engine_epoch(eng, self.state, self.ledger,
+                                          segs=self.segs)
+        self.iters += eng.flush_every
+
+    def framebuffer(self) -> torch.Tensor:
+        """The UNNORMALIZED (H*W, 3) sums of this worker's tasks."""
+        with on_device(self.eng.device):
+            return fold_ledger(self.eng, self.ledger.cells)
+
+    def stats(self) -> dict:
+        return {"iters": self.iters, "segments": int(self.segs.item()),
+                "lanes": self.eng.lanes}
 
 
 def render_wavefront(scene: Scene, cam: Camera, base_key, *, spp: int,

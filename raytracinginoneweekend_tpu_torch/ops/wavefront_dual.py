@@ -1,7 +1,9 @@
 """Dual-pool wavefront: coherence-split rendering for many-sphere scenes.
 
-Counterpart of ``raytracinginoneweekend_tpu/ops/wavefront_dual.py`` (one
-worker).
+Counterpart of ``raytracinginoneweekend_tpu/ops/wavefront_dual.py``.
+Several workers (``worker_index`` of ``n_workers``, parallel/mesh.py)
+split the sequential task space as the single pool's strided ownership
+does: worker w's primary lane l walks w*P + l, + n_workers*P, ...
 
 The single-pool engine (ops/wavefront.py) pays the full O(S) brute-force
 sphere loop for EVERY segment because its lanes mix camera rays with
@@ -62,7 +64,7 @@ import torch
 from ..config import TraceOptions
 from ..models.camera import Camera
 from ..models.scene import Scene
-from ..utils.device import resolve_device
+from ..utils.device import on_device, resolve_device
 from . import cull
 from . import rng
 from .cuda_segment import (hit_table, hit_table_padded, resolve_segment,
@@ -204,6 +206,8 @@ class DualEngine(NamedTuple):
     options: TraceOptions
     n_pixels: int      # also the "empty" value of the pending pixel plane
     task_samples: int
+    lane0: int         # this worker's first sequential task: worker_index*P
+    stride: int        # sequential-task step of a primary lane: n_workers*P
     tpp: int           # tasks per virtual pixel
     n_tasks: int
     n_g: int           # granules of BLOCK sequential task ids
@@ -222,14 +226,14 @@ def build_dual_engine(scene: Scene, cam: Camera, base_key, *, width: int,
                       height: int, spp: int, max_depth: int,
                       camera_mode: str, options: TraceOptions,
                       pool_size: int = 1 << 16,
-                      k_s: int = SECONDARY_COPIES, n_workers: int = 1,
-                      plain: bool = False, device=None) -> DualEngine:
+                      k_s: int = SECONDARY_COPIES, worker_index: int = 0,
+                      n_workers: int = 1, plain: bool = False,
+                      device=None) -> DualEngine:
     """Validate a frame's configuration and prepare its DualEngine
     (arguments as ``wavefront_dual_fb``)."""
-    if n_workers != 1:
-        raise NotImplementedError(
-            "n_workers > 1 is not ported yet (ROADMAP.md, Queue 1: "
-            "multi-GPU)")
+    if not 0 <= worker_index < n_workers:
+        raise ValueError(f"worker_index={worker_index} is not one of "
+                         f"{n_workers} workers")
     if k_s < 1:
         raise ValueError(f"k_s={k_s}; the secondary pool needs a copy")
     device = resolve_device(device)
@@ -247,8 +251,10 @@ def build_dual_engine(scene: Scene, cam: Camera, base_key, *, width: int,
     scene, cam = scene.to(device), cam.to(device)
     sphere_params = sphere_params_from_scene(scene)
     geom = sphere_params[:4]
+    p = dual_pool_lanes(pool_size, spp, k_s)
     return DualEngine(
-        device=device, p=dual_pool_lanes(pool_size, spp, k_s), k_s=k_s,
+        device=device, p=p, k_s=k_s, lane0=worker_index * p,
+        stride=n_workers * p,
         width=width, height=height, spp=spp, max_depth=max_depth,
         camera_mode=camera_mode, options=options, n_pixels=width * height,
         task_samples=task_samples, tpp=tpp, n_tasks=n_tasks, n_g=n_g,
@@ -263,7 +269,8 @@ def build_dual_engine(scene: Scene, cam: Camera, base_key, *, width: int,
 
 
 def initial_dual_state(eng: DualEngine) -> DualState:
-    """Every lane idle: primary lane l will acquire sequential task l."""
+    """Every lane idle: primary lane l will acquire sequential task
+    lane0 + l."""
     dev, r_p = eng.device, eng.p // LANES
 
     def full(shape, value, dtype):
@@ -277,7 +284,8 @@ def initial_dual_state(eng: DualEngine) -> DualState:
     h = Handoff(full(ps, False, torch.bool), zp, zp, zp, zp + 1.0, zp, zp,
                 zp, zp, zp, ip, ip)
     return DualState(
-        torch.arange(eng.p, dtype=i32, device=dev).reshape(ps),
+        torch.arange(eng.lane0, eng.lane0 + eng.p, dtype=i32,
+                     device=dev).reshape(ps),
         ip - 1, ip, ip, zp, zp, zp, ip + eng.n_pixels, zp, zp, zp, h, h,
         full(ss, False, torch.bool), zs, zs, zs, zs + 1.0, zs, zs,
         zs, zs, zs, is_, is_, is_)
@@ -344,7 +352,7 @@ def dual_step(eng: DualEngine, state: DualState, metrics=None) -> DualState:
     has_task = task >= 0
     acquire = ~has_task & (nxt < eng.n_seq)
     task_seq = torch.where(acquire, nxt, task)
-    nxt = torch.where(acquire, nxt + eng.p, nxt)
+    nxt = torch.where(acquire, nxt + eng.stride, nxt)
     # granule scramble: sequential counter -> spatial task id
     g = _fdiv(task_seq, BLOCK)
     t_sp = (torch.remainder(g * eng.gk, eng.n_g) * BLOCK
@@ -493,45 +501,69 @@ def wavefront_dual_fb(scene: Scene, cam: Camera, base_key, *,
     spp, max_depth, camera_mode, options (the frame); base_key: the
     ``(k0, k1)`` base-key words; pool_size: the total lane budget, of
     which 1 / (1 + k_s) are primary lanes; k_s: secondary copies;
-    n_workers: 1 only; plain: run the kernels' plain PyTorch versions
-    whatever the device; device: where to render (None = the CUDA card).
+    worker_index, n_workers: this worker of how many (the module
+    docstring); plain: run the kernels' plain PyTorch versions whatever
+    the device; device: where to render (None = the CUDA card).
 
     with_metrics=True additionally returns an occupancy/stall dict
     (iterations, issue/active/blocked lane-iteration sums, candidate
     totals, handoffs: exact integers summed on the device and read once
     at the end; p_lanes, s_lanes) for performance diagnosis.
     """
-    eng = build_dual_engine(scene, cam, base_key, **config)
-    device, free_pix = eng.device, eng.n_pixels
-    # one dump cell past the image takes the empty pendings
-    fb = torch.zeros((3, free_pix + 1), dtype=torch.float32, device=device)
+    run = DualRun(build_dual_engine(scene, cam, base_key, **config),
+                  with_metrics)
+    while run.more():
+        run.epoch()
+    out = run.framebuffer()
+    return (out, run.metrics()) if with_metrics else out
 
-    def flush(state: DualState) -> DualState:
-        fb.index_add_(1, state.pp.reshape(-1).to(torch.int64), torch.stack(
-            [state.pr.reshape(-1), state.pg.reshape(-1),
-             state.pb.reshape(-1)]))
-        zero = torch.zeros_like(state.pr)
-        return state._replace(pp=torch.full_like(state.pp, free_pix),
-                              pr=zero, pg=zero, pb=zero)
 
-    def more(state: DualState) -> bool:
+class DualRun:
+    """One worker's dual-pool frame in flight (see ops/wavefront.FrameRun):
+    ``wavefront_dual_fb`` steps one, parallel/mesh.py one per worker."""
+
+    def __init__(self, eng: DualEngine, with_metrics: bool = False):
+        self.eng = eng
+        # one dump cell past the image takes the empty pendings
+        self.fb = torch.zeros((3, eng.n_pixels + 1), dtype=torch.float32,
+                              device=eng.device)
+        self.met = (torch.zeros(len(METRICS), dtype=torch.int64,
+                                device=eng.device)
+                    if with_metrics else None)
+        self.state = initial_dual_state(eng)
+
+    def pending(self) -> torch.Tensor:
+        """Anything left to trace, as a bool on the device (no read)."""
+        return (self.state.task >= 0).any() | (
+            self.state.nxt < self.eng.n_seq).any()
+
+    def more(self) -> bool:
         """Anything left to trace? One device->host read."""
-        return bool(((state.task >= 0).any()
-                     | (state.nxt < eng.n_seq).any()).item())
+        return bool(self.pending().item())
 
-    metrics = (torch.zeros(len(METRICS), dtype=torch.int64, device=device)
-               if with_metrics else None)
-    state = initial_dual_state(eng)
-    while more(state):
-        for _ in range(FLUSH_EVERY):
-            state = dual_step(eng, state, metrics)
-        state = flush(state)
-    out = fb[:, :free_pix].t().contiguous()
-    if not with_metrics:
-        return out
-    met = dict(zip(METRICS, (int(v) for v in metrics.tolist())))
-    met.update(p_lanes=eng.p, s_lanes=eng.k_s * eng.p)
-    return out, met
+    def epoch(self) -> None:
+        """FLUSH_EVERY steps, then the flush of the pendings."""
+        eng, state = self.eng, self.state
+        with on_device(eng.device):
+            for _ in range(FLUSH_EVERY):
+                state = dual_step(eng, state, self.met)
+            self.fb.index_add_(1, state.pp.reshape(-1).to(torch.int64),
+                               torch.stack([state.pr.reshape(-1),
+                                            state.pg.reshape(-1),
+                                            state.pb.reshape(-1)]))
+            zero = torch.zeros_like(state.pr)
+            self.state = state._replace(
+                pp=torch.full_like(state.pp, eng.n_pixels), pr=zero,
+                pg=zero, pb=zero)
+
+    def framebuffer(self) -> torch.Tensor:
+        """The UNNORMALIZED (H*W, 3) sums of this worker's tasks."""
+        return self.fb[:, :self.eng.n_pixels].t().contiguous()
+
+    def metrics(self) -> dict:
+        met = dict(zip(METRICS, (int(v) for v in self.met.tolist())))
+        met.update(p_lanes=self.eng.p, s_lanes=self.eng.k_s * self.eng.p)
+        return met
 
 
 def render_wavefront_dual(scene: Scene, cam: Camera, base_key, *, spp: int,

@@ -31,8 +31,17 @@ The gradient surrogates are carried (``boundary_samples``,
 ``secondary_vertex_depths``, ``rr_grad`` with ``rr_grad_arms``:
 ops/silhouette.py, ops/branchprob.py); each enters the loss as
 ``s - s.detach()``, so the value is the plain loss and only the gradient
-changes. Not carried yet: ``mesh`` (multi-GPU), which raises
-``NotImplementedError`` naming ROADMAP.md.
+changes.
+
+``mesh=`` (parallel/mesh.py) splits the interior batch over the mesh's
+workers, as the JAX package's shard_map does; the surrogates stay
+unsharded. In one process each worker renders its shard from the
+parameters moved to its device and autograd sums the shards' gradients.
+Under a process group each rank renders its own workers' shards: the loss
+is normalised by the global batch, the train step all-reduces the
+parameter gradients once after the backward pass
+(``all_reduce_gradients``), and the surrogates -- on the whole batch --
+are attached on the rank that holds worker 0 only.
 """
 
 from __future__ import annotations
@@ -170,22 +179,17 @@ def resolve_ad_engine(max_depth: int, rr_terminate: bool = False) -> str:
     return "wavefront" if max_depth > cut else "planar"
 
 
-def _later(what: str, where: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                              f"{where})")
-
-
-def _check_carried(mesh):
-    if mesh is not None:
-        _later("mesh= (multi-GPU inverse rendering)",
-               "Queue 1 item 12: multi-GPU")
+def _grouped(mesh) -> bool:
+    """The mesh spans several processes."""
+    return mesh is not None and mesh.group is not None
 
 
 def _render_batch(full_scene, cam, pixel_ids, base_key, *, width, height,
-                  spp, max_depth, camera_mode, options, engine,
+                  spp, max_depth, camera_mode, options, engine, mesh=None,
                   engine_opts=None):
-    """Differentiable (P, 3) pixel batch via the chosen AD engine (on one
-    device: callers refuse ``mesh`` before they get here)."""
+    """Differentiable pixel batch via the chosen AD engine -> the radiance
+    of pixel_ids[lo:hi] (``_rows``): the whole batch, but under a process
+    group this rank's workers' shards."""
     if engine == "auto":
         engine = resolve_ad_engine(max_depth, options.rr_terminate)
     if engine == "planar":
@@ -209,7 +213,62 @@ def _render_batch(full_scene, cam, pixel_ids, base_key, *, width, height,
         kwargs.update(engine_opts)
     if engine == "tiled":
         kwargs["wave_spp"] = spp
-    return impl(full_scene, cam, pixel_ids, base_key, **kwargs)
+    if mesh is None:
+        return impl(full_scene, cam, pixel_ids, base_key, **kwargs)
+    from ..utils.device import on_device
+
+    per = _rows(mesh, pixel_ids.shape[0])[2]
+    outs = []
+    for g, dev in mesh.workers():
+        with on_device(dev):
+            outs.append(impl(full_scene.to(dev), cam.to(dev),
+                             pixel_ids[g * per:(g + 1) * per].to(dev),
+                             base_key, **kwargs).to(mesh.devices[0]))
+    return torch.cat(outs)
+
+
+def _rows(mesh, n: int) -> tuple:
+    """(lo, hi, per): the rows of an n-pixel batch that this process
+    renders (all n but under a process group) and the rows a worker."""
+    if mesh is None:
+        return 0, n, n
+    if n % mesh.size:
+        raise ValueError(f"a batch of {n} pixels does not divide over a "
+                         f"mesh of {mesh.size} workers")
+    per = n // mesh.size
+    if not _grouped(mesh):
+        return 0, n, per
+    return mesh.first * per, (mesh.first + len(mesh.devices)) * per, per
+
+
+def all_reduce_gradients(params: dict, mesh) -> None:
+    """Sum the parameters' ``.grad`` over the ranks of the mesh, in place
+    (nothing without a process group): what a caller of ``render_loss``
+    under a process group does after its backward pass, as the train step
+    does."""
+    if not _grouped(mesh):
+        return
+    from ..parallel.mesh import all_reduce_sum
+
+    for p in params.values():
+        if p.grad is not None:
+            p.grad.copy_(all_reduce_sum(mesh, p.grad))
+
+
+def _whole_batch(mesh, part: torch.Tensor) -> torch.Tensor:
+    """Under a process group the ranks' detached rows gathered in order
+    (each rank holds its workers' rows); else ``part`` itself."""
+    if not _grouped(mesh):
+        return part
+    from ..parallel.mesh import gather_workers
+
+    return torch.cat(gather_workers(mesh, [part]))
+
+
+def _surrogates_here(mesh) -> bool:
+    """The surrogates (on the whole batch) are attached once: in one
+    process, or under a process group on the rank of worker 0."""
+    return not _grouped(mesh) or mesh.first == 0
 
 
 def _attach_surrogates(value, cot, full_scene, cam, camera_mode, pixel_ids,
@@ -312,25 +371,43 @@ def render_loss(params: dict, scene: Scene, cam: Camera, target_pixels,
     ``rr_grad_arms`` internal-RR reflection arms a refract chain. On the
     card the probe traces take the intersect kernel when
     ``options.intersect == "pallas"``.
+
+    mesh: split the batch over a parallel/mesh.py mesh (its size must
+    divide it). Under a process group every rank passes the whole batch,
+    the value is the global loss, and the gradient is this rank's share:
+    sum it over the ranks with ``all_reduce_gradients`` (the train step
+    does).
     """
-    _check_carried(mesh)
     full_scene = scene_with_params(scene, params)
-    rendered = _render_batch(full_scene, cam, pixel_ids, base_key,
-                             width=width, height=height, spp=spp,
-                             max_depth=max_depth, camera_mode=camera_mode,
-                             options=options, engine=engine,
-                             engine_opts=engine_opts)
-    diff = rendered - target_pixels
-    loss = torch.mean(diff * diff)
-    cot = 2.0 * diff.detach() / diff.numel()
-    return _attach_surrogates(
-        loss, cot, full_scene, cam, camera_mode, pixel_ids, base_key,
-        width=width, height=height, max_depth=max_depth, options=options,
-        boundary_samples=boundary_samples,
-        secondary_samples=secondary_samples,
-        secondary_spheres=secondary_spheres,
-        secondary_vertex_depths=secondary_vertex_depths, rr_grad=rr_grad,
-        rr_grad_arms=rr_grad_arms)
+    lo, hi, _ = _rows(mesh, pixel_ids.shape[0])
+    rendered = _render_batch(
+        full_scene, cam, pixel_ids, base_key, width=width, height=height,
+        spp=spp, max_depth=max_depth, camera_mode=camera_mode,
+        options=options, engine=engine, mesh=mesh, engine_opts=engine_opts)
+    diff = rendered - target_pixels[lo:hi].to(rendered.device)
+    grouped = _grouped(mesh)
+    # under a process group this rank's share of the global mean
+    loss = (torch.sum(diff * diff) / target_pixels.numel() if grouped
+            else torch.mean(diff * diff))
+    if boundary_samples or secondary_samples or rr_grad:
+        # every rank gathers (a collective); one attaches
+        cot = 2.0 * _whole_batch(mesh, diff.detach()) / target_pixels.numel()
+        if _surrogates_here(mesh):
+            loss = _attach_surrogates(
+                loss, cot, full_scene, cam, camera_mode, pixel_ids,
+                base_key, width=width, height=height, max_depth=max_depth,
+                options=options, boundary_samples=boundary_samples,
+                secondary_samples=secondary_samples,
+                secondary_spheres=secondary_spheres,
+                secondary_vertex_depths=secondary_vertex_depths,
+                rr_grad=rr_grad, rr_grad_arms=rr_grad_arms)
+    if not grouped:
+        return loss
+    # the value is the global loss on every rank (x - x is 0 exactly), the
+    # gradient this rank's share (all_reduce_gradients sums them)
+    from ..parallel.mesh import all_reduce_sum
+
+    return all_reduce_sum(mesh, loss.detach()) + (loss - loss.detach())
 
 
 def render_pixels_vjp(params: dict, scene: Scene, cam: Camera, cotangent,
@@ -351,26 +428,36 @@ def render_pixels_vjp(params: dict, scene: Scene, cam: Camera, cotangent,
     in, weighted by the caller's cotangent. All keyword knobs mean what
     they mean in render_loss.
     """
-    _check_carried(mesh)
     full_scene = scene_with_params(scene, params)
+    lo, hi, _ = _rows(mesh, pixel_ids.shape[0])
     rendered = _render_batch(
         full_scene, cam, pixel_ids, base_key, width=width, height=height,
         spp=spp, max_depth=max_depth, camera_mode=camera_mode,
-        options=options, engine=engine, engine_opts=engine_opts)
+        options=options, engine=engine, mesh=mesh, engine_opts=engine_opts)
     cot = torch.as_tensor(cotangent, dtype=torch.float32,
                           device=rendered.device).detach()
-    value = _attach_surrogates(
-        torch.sum(rendered * cot), cot, full_scene, cam, camera_mode,
-        pixel_ids, base_key, width=width, height=height,
-        max_depth=max_depth, options=options,
-        boundary_samples=boundary_samples,
-        secondary_samples=secondary_samples,
-        secondary_spheres=secondary_spheres,
-        secondary_vertex_depths=secondary_vertex_depths, rr_grad=rr_grad,
-        rr_grad_arms=rr_grad_arms)
+    value = torch.sum(rendered * cot[lo:hi])
+    if _surrogates_here(mesh):
+        value = _attach_surrogates(
+            value, cot, full_scene, cam, camera_mode, pixel_ids, base_key,
+            width=width, height=height, max_depth=max_depth,
+            options=options, boundary_samples=boundary_samples,
+            secondary_samples=secondary_samples,
+            secondary_spheres=secondary_spheres,
+            secondary_vertex_depths=secondary_vertex_depths,
+            rr_grad=rr_grad, rr_grad_arms=rr_grad_arms)
     names = list(params)
-    grads = torch.autograd.grad(value, [params[k] for k in names])
-    return dict(zip(names, grads)), rendered.detach()
+    # under a process group a rank without the surrogates may not reach
+    # every leaf: its share of that gradient is zero
+    grads = torch.autograd.grad(value, [params[k] for k in names],
+                                allow_unused=_grouped(mesh))
+    grads = {k: torch.zeros_like(params[k]) if g is None else g
+             for k, g in zip(names, grads)}
+    if _grouped(mesh):
+        from ..parallel.mesh import all_reduce_sum
+
+        grads = {k: all_reduce_sum(mesh, g) for k, g in grads.items()}
+    return grads, _whole_batch(mesh, rendered.detach())
 
 
 def make_train_step(optimizer: torch.optim.Optimizer, *, width: int,
@@ -390,8 +477,6 @@ def make_train_step(optimizer: torch.optim.Optimizer, *, width: int,
     loss comes back as a detached scalar tensor on the device; nothing is
     read to the host.
     """
-    _check_carried(mesh)
-
     def step(params, scene, cam, target_pixels, pixel_ids, base_key):
         optimizer.zero_grad(set_to_none=True)
         loss = render_loss(
@@ -405,6 +490,7 @@ def make_train_step(optimizer: torch.optim.Optimizer, *, width: int,
             rr_grad=rr_grad, rr_grad_arms=rr_grad_arms, engine=engine,
             engine_opts=engine_opts)
         loss.backward()
+        all_reduce_gradients(params, mesh)
         optimizer.step()
         return loss.detach()
 
@@ -445,8 +531,10 @@ def fit(scene: Scene, cam: Camera, target_image, cfg: RenderConfig, *,
     """Optimize scene params toward a target image.
 
     target_image: (H, W, 3) linear radiance (as produced by render.render).
-    Runs on ``device`` (None = the CUDA card; scene, camera and target are
-    moved there). Returns (optimized_scene, params, optimizer, losses):
+    Runs on ``device`` (None = the CUDA card, or with ``mesh`` the mesh's
+    first device; scene, camera and target are moved there). ``mesh``
+    splits each step's batch over its workers (the module docstring;
+    batch_pixels is rounded to the mesh's multiple). Returns (optimized_scene, params, optimizer, losses):
     ``optimizer`` is the bound ``torch.optim`` optimiser, which holds the
     optimiser state (``adam_state_to_numpy`` reads it).
 
@@ -458,6 +546,8 @@ def fit(scene: Scene, cam: Camera, target_image, cfg: RenderConfig, *,
     the loss as a float there, as ``fit`` itself does for ``losses``, is
     one device->host read per step.
     """
+    if device is None and mesh is not None:
+        device = mesh.devices[0]
     device = resolve_device(device)
     scene, cam = scene.to(device), cam.to(device)
     if base_key is None:
@@ -475,7 +565,17 @@ def fit(scene: Scene, cam: Camera, target_image, cfg: RenderConfig, *,
     target_flat = torch.as_tensor(target_image, dtype=torch.float32,
                                   device=device).reshape(-1, 3)
     n_pixels = cfg.width * cfg.height
+    # the draw takes distinct pixels: clamp for small images, then round to
+    # the mesh's multiple (down where up would overflow again), as JAX does
     batch_pixels = min(batch_pixels, n_pixels)
+    if mesh is not None:
+        up = -(-batch_pixels // mesh.size) * mesh.size
+        batch_pixels = up if up <= n_pixels else (
+            (batch_pixels // mesh.size) * mesh.size)
+        if batch_pixels <= 0:
+            raise ValueError(
+                f"image of {n_pixels} pixels is smaller than the "
+                f"{mesh.size}-worker mesh batch granularity")
 
     step_fn = make_train_step(
         opt, width=cfg.width, height=cfg.height, spp=spp,

@@ -7,6 +7,8 @@ itself. Tests and ``--device cpu`` ask for the CPU explicitly.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -20,3 +22,14 @@ def resolve_device(device=None) -> torch.device:
                 "pass device='cpu' (or --device cpu) to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def on_device(device):
+    """Make ``device`` the current CUDA device for a block: kernel launches
+    and graph captures go to the current device's streams, so a worker on
+    another card than the current one launches under this. A no-op off the
+    card."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

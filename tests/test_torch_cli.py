@@ -106,7 +106,40 @@ def test_bench_cpu_prints_record(capsys):
         16 * 12 * 2 / rec["seconds_per_frame"])
 
 
-def test_cli_device_default_is_cuda_and_unported_engines_raise(tmp_path):
+@pytest.mark.parametrize("device", ["cpu", None])
+def test_cli_joins_the_group_before_touching_a_device(device, tmp_path,
+                                                      monkeypatch):
+    """Under torchrun (WORLD_SIZE > 1) a sharded render joins the process
+    group before it resolves its device or builds the scene, so that each
+    rank's first CUDA use is on the card the join made current: NCCL (the
+    backend's default) for the card, gloo for ``--device cpu``."""
+    from raytracinginoneweekend_tpu_torch.parallel import distributed
+    from raytracinginoneweekend_tpu_torch.utils import device as pdevice
+
+    calls = []
+    resolve, build = pdevice.resolve_device, pcli._build_scene
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setattr(distributed, "initialize_distributed",
+                        lambda backend=None: calls.append(("join", backend)))
+    monkeypatch.setattr(pdevice, "resolve_device", lambda d=None: (
+        calls.append(("resolve", d)), resolve(d))[1])
+    monkeypatch.setattr(pcli, "_build_scene", lambda *a: (
+        calls.append(("scene", str(a[-1]))), build(*a))[1])
+    argv = ["render", "--width", "8", "--height", "8", "--spp", "1",
+            "--engine", "wavefront-sharded", "--out",
+            str(tmp_path / "x.ppm")]
+    if device is None:
+        if torch.cuda.is_available():
+            pytest.skip("checks the order up to the missing card")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pcli.main(argv)
+        assert calls == [("join", None), ("resolve", None)]
+        return
+    assert pcli.main(argv + ["--device", device]) == 0
+    assert calls == [("join", "gloo"), ("resolve", "cpu"), ("scene", "cpu")]
+
+
+def test_cli_device_default_is_cuda_and_sharded_engines_render(tmp_path):
     out = str(tmp_path / "x.ppm")
     small = ["--width", "8", "--height", "8", "--spp", "1", "--out", out]
     if not torch.cuda.is_available():
@@ -115,10 +148,18 @@ def test_cli_device_default_is_cuda_and_unported_engines_raise(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             pcli.main(["fit", "--width", "8", "--height", "8", "--steps",
                        "1"])
-    for engine in ("wavefront-sharded", "wavefront-dual-sharded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pcli.main(["render", *small, "--device", "cpu", "--engine",
-                       engine])
+    # the sharded engines on the one device asked for: a one-worker mesh,
+    # the unsharded engine's image
+    for engine, plain in (("wavefront-sharded", "wavefront"),
+                          ("wavefront-dual-sharded", "wavefront-dual")):
+        images = []
+        for e in (engine, plain):
+            out_e = str(tmp_path / f"{e}.ppm")
+            assert pcli.main(["render", *small[:-1], out_e, "--device",
+                              "cpu", "--engine", e]) == 0
+            with open(out_e, "rb") as f:
+                images.append(f.read())
+        assert images[0] == images[1], engine
     # the whole-bounce step is carried (tests/test_torch_mega.py)
     assert pcli.main(["render", *small, "--device", "cpu", "--fusion",
                       "bounce"]) == 0

@@ -363,3 +363,38 @@ def test_closest_hit_in_float64_is_the_float32_result_refined():
 
 def radii_abs(radii, idx):
     return torch.from_numpy(np.abs(radii))[idx.to(torch.int64)]
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_gather_rows_forward_stays_in_float32(grad):
+    """``gather_rows``'s forward is the plain float32 gather, with or
+    without autograd: no float64 tensor is made until the backward, whose
+    per-row sums are ``sum_by_winner``'s (float64, rounded once)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Dtypes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else [out]):
+                if isinstance(t, torch.Tensor):
+                    self.seen.add(t.dtype)
+            return out
+
+    g = np.random.default_rng(0)
+    table = torch.from_numpy(g.normal(size=(7, 3)).astype(np.float32))
+    table.requires_grad_(grad)
+    idx = torch.from_numpy(g.integers(0, 7, 4096))
+    rows = torch.from_numpy(g.normal(size=(4096, 3)).astype(np.float32))
+    with torch.set_grad_enabled(grad), Dtypes() as mode:
+        got = pint.gather_rows(table, idx)
+    assert mode.seen == {torch.float32}, mode.seen
+    np.testing.assert_array_equal(got.detach().numpy(),
+                                  table.detach().numpy()[idx.numpy()])
+    if grad:
+        got.mul(rows).sum().backward()
+        np.testing.assert_array_equal(
+            table.grad.numpy(), pint.sum_by_winner(idx, rows, 7).numpy())

@@ -347,21 +347,63 @@ def test_engine_policy_and_parameter_helpers():
             poptim.params_from_numpy({"radii": np.zeros(3)})
 
 
-def test_what_this_slice_leaves_out_raises():
-    """mesh= (multi-GPU) is the one knob the port still refuses, at every
-    entry."""
+def test_mesh_at_every_entry():
+    """mesh= splits the batch over a 2-worker CPU mesh at every entry:
+    render_loss and render_pixels_vjp give the one-device value and
+    gradients within rtol 2e-5 / atol 1e-7 (tests/test_parallel.py's
+    bound), the train step the same parameters, and fit rounds the batch
+    to the mesh's multiple."""
+    from raytracinginoneweekend_tpu_torch import parallel
+
     _, psc, _, pcam, ids, target = _setup()
-    params = poptim.params_from_scene(psc, ("albedo",))
-    kw = dict(KW, options=pconfig.DEFAULT, mesh=object())
-    args = (params, psc, pcam, torch.from_numpy(target),
-            torch.from_numpy(ids), ptf.key_words(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-        poptim.render_loss(*args, **kw)
-    assert "item 12" in str(e.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        poptim.render_pixels_vjp(*args, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        poptim.make_train_step(pinverse.make_adam(params, 1e-2), **kw)
+    mesh = parallel.make_mesh([torch.device("cpu")] * 2)
+    kw = dict(KW, options=pconfig.DEFAULT)
+    args = (psc, pcam, torch.from_numpy(target), torch.from_numpy(ids),
+            ptf.key_words(0))
+
+    def loss_grads(m):
+        params = poptim.params_from_scene(psc, ("albedo", "centers"))
+        loss = poptim.render_loss(params, *args, mesh=m, **kw)
+        loss.backward()
+        return float(loss.detach()), {k: v.grad for k, v in params.items()}
+
+    def vjp(m):
+        params = poptim.params_from_scene(psc, ("albedo", "centers"))
+        return poptim.render_pixels_vjp(params, *args, mesh=m, **kw)
+
+    def stepped(m):
+        params = poptim.params_from_scene(psc, ("albedo", "centers"))
+        step = poptim.make_train_step(pinverse.make_adam(params, 1e-2),
+                                      mesh=m, **kw)
+        step(params, *args)
+        return params
+
+    (l1, g1), (l2, g2) = loss_grads(None), loss_grads(mesh)
+    np.testing.assert_allclose(l2, l1, rtol=1e-6)
+    (v1, p1), (v2, p2) = vjp(None), vjp(mesh)
+    np.testing.assert_array_equal(p2.numpy(), p1.numpy())
+    s1, s2 = stepped(None), stepped(mesh)
+    for k in g1:
+        np.testing.assert_allclose(g2[k].numpy(), g1[k].numpy(), rtol=2e-5,
+                                   atol=1e-7, err_msg=k)
+        np.testing.assert_allclose(v2[k].numpy(), v1[k].numpy(), rtol=2e-5,
+                                   atol=1e-7, err_msg=k)
+        np.testing.assert_allclose(s2[k].detach().numpy(),
+                                   s1[k].detach().numpy(), rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+    with pytest.raises(ValueError, match="divide"):
+        poptim.render_loss(poptim.params_from_scene(psc, ("albedo",)),
+                           psc, pcam, torch.from_numpy(target[:95]),
+                           torch.from_numpy(ids[:95]), ptf.key_words(0),
+                           mesh=mesh, **kw)
+    three = parallel.make_mesh([torch.device("cpu")] * 3)
+    cfg = pconfig.RenderConfig(width=4, height=5, spp=1, max_depth=2,
+                               camera_mode="pinhole")
+    cam = pcamera.reference_cuda_camera(4, 5, "cpu")
+    _, _, _, losses = poptim.fit(psc, cam, torch.zeros((5, 4, 3)), cfg,
+                                 which=("albedo",), steps=1,
+                                 batch_pixels=64, mesh=three)
+    assert len(losses) == 1 and np.isfinite(losses[0])
 
 
 @pytest.mark.parametrize("kwargs,leaf", [

@@ -204,18 +204,55 @@ def test_ray_id_overflow_raises():
         _tiny(width=1 << 16, height=1 << 15, spp=1)
 
 
-UNPORTED = {
-    "resolve_split": dict(options=rt.TraceOptions(resolve="split")),
-    "resolve_f32": dict(options=rt.TraceOptions(resolve="f32")),
-    "reserve_frac": dict(reserve_frac=0.1),
-    "n_workers": dict(n_workers=2),
-}
+@pytest.mark.parametrize("resolve", ["split", "f32"])
+def test_resolve_variants_bit_identical(resolve):
+    """tests/test_wavefront.py::test_resolve_variants_bit_identical: the
+    JAX package's resolve forms are exact gathers that give the "onehot"
+    frame; the port's lookup is a direct index, the same for all three.
+    Against JAX's frame of the same form: the frame rule."""
+    for scene, w, h, atol in (("simple-cuda", 32, 20, 3e-5),
+                              ("huge", 28, 16, 5e-4)):
+        args = (scene, "cpu", "default", "thinlens", w, h, 4, 6, 3, 2048)
+        base = _render_port(*args)
+        assert np.isfinite(base).all() and base.max() > 0.05
+        got = _render_port(*args, changes=(("resolve", resolve),))
+        np.testing.assert_array_equal(base, got, err_msg=resolve)
+        want = _render_jax(*args, changes=(("resolve", resolve),))
+        cmp = golden.compare_frames(got, want, atol=atol)
+        assert cmp["ok"], cmp
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_options_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _tiny(**UNPORTED[name])
+def test_unknown_resolve_raises():
+    with pytest.raises(ValueError, match="resolve"):
+        rt.TraceOptions(resolve="bf16")
+
+
+@pytest.mark.parametrize("n_workers", [2, 3])
+def test_workers_partial_frames_sum_to_one_worker(n_workers):
+    """Worker w of n (strided ownership: its lanes start at w*P and step
+    n*P) traces only its own tasks; the sum of the workers' partial
+    framebuffers is the one-worker frame within rtol 2e-4 / atol 2e-5
+    (tests/test_parallel.py's bound: a pixel's tasks add in another
+    order). One task a pixel here, so it is the frame to the bit; 17408
+    tasks over 8192-lane workers, so the third worker has some too."""
+    w, h = 136, 128
+    kw = dict(width=w, height=h, spp=2, max_depth=3,
+              camera_mode="thinlens", options=rt.DEFAULT, pool_size=32,
+              device="cpu")
+    scene = pscene.simple_scene_cuda("cpu")
+    cam = pcamera.reference_cuda_camera(w, h, "cpu")
+    want = pwave.wavefront_fb(scene, cam, rt.key_words(0), **kw)
+    parts = [pwave.wavefront_fb(scene, cam, rt.key_words(0), worker_index=w,
+                                n_workers=n_workers, **kw)
+             for w in range(n_workers)]
+    assert all(float(p.abs().sum()) > 0 for p in parts)
+    got = parts[0]
+    for p in parts[1:]:
+        got = got + p
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    with pytest.raises(ValueError, match="worker_index"):
+        pwave.wavefront_fb(scene, cam, rt.key_words(0), worker_index=n_workers,
+                           n_workers=n_workers, **kw)
 
 
 @pytest.mark.parametrize("changes, match", [
@@ -444,6 +481,61 @@ def test_bad_deposit_and_ledger_cap():
     assert _tiny_engine().deposit == "ledger"
     with pytest.raises(ValueError, match="deposit"):
         _tiny_engine(deposit="heap")
+
+
+def _worker_tasks(eng):
+    """Every task id worker ``eng`` may trace: its lanes' own sequences
+    and its reserve slice."""
+    first = pwave.first_tasks(eng.lanes, "cpu", eng.own_bl, eng.own_tb,
+                              eng.base).reshape(-1).to(torch.int64)
+    if eng.own_bl:
+        return torch.arange(eng.base, eng.base + eng.n_k * eng.lanes)
+    own = (first[None, :] + eng.stride
+           * torch.arange(eng.n_k)[:, None]).reshape(-1)
+    return torch.cat([own[own < eng.owned_end],
+                      torch.arange(eng.res_start, eng.res_end)])
+
+
+@pytest.mark.parametrize("n_workers", [2, 4])
+@pytest.mark.parametrize("own", ["strided", "tile"])
+def test_worker_ledger_is_local_and_capped(own, n_workers, monkeypatch):
+    """Under several workers a worker's ledger holds its own cells only:
+    ``ledger_cell`` maps its tasks one to one onto them, and the fold's
+    ``spread_cells`` puts each back at its task id. The cap bounds every
+    array of the ledger deposit (the cells and the fold's task-indexed
+    array)."""
+    frame = dict(width=256, height=128, spp=40, pool_size=8192,
+                 options=rt.TraceOptions(ownership=own),
+                 reserve_frac=0.3 if own == "strided" else None)
+    engs = [_tiny_engine(worker_index=w, n_workers=n_workers, **frame)
+            for w in range(n_workers)]
+    n_tasks = engs[0].n_tasks  # tile ownership pads it by worker count
+    covered = torch.zeros(n_tasks, dtype=torch.int64)
+    for eng in engs:
+        tasks = _worker_tasks(eng)
+        cells = pwave.ledger_cell(eng, tasks)
+        n_own = pwave.own_cells(eng)
+        assert int(cells.min()) >= 0 and int(cells.max()) < n_own
+        assert torch.unique(cells).numel() == tasks.numel()
+        assert n_own < n_tasks // n_workers + eng.lanes
+        assert tuple(pwave.new_ledger(eng).cells.shape) == (
+            3, n_own + eng.lanes)
+        vals = torch.zeros((3, n_own), dtype=torch.float32)
+        vals[:, cells] = tasks.to(torch.float32) + 1
+        full = pwave.spread_cells(eng, vals)
+        assert full.shape == (3, n_tasks)
+        np.testing.assert_array_equal(full[0, tasks].numpy(),
+                                      tasks.numpy() + 1)
+        covered.index_add_(0, tasks, torch.ones_like(tasks))
+    # every task id has one owner
+    assert bool((covered == 1).all())
+    need = 3 * 4 * max([n_tasks] + [pwave.own_cells(e) for e in engs])
+    for cap, want in ((need, "ledger"), (3 * 4 * n_tasks - 1, "scatter")):
+        monkeypatch.setattr(pwave, "LEDGER_CAP_BYTES", cap)
+        for w in range(n_workers):
+            eng = _tiny_engine(worker_index=w, n_workers=n_workers, **frame)
+            assert eng.deposit == want, (cap, w)
+            assert want == "scatter" or 3 * 4 * pwave.own_cells(eng) <= cap
 
 
 def test_deposit_scatter_renders_the_ledger_frame():

@@ -282,8 +282,8 @@ def test_dual_state_round_trip():
 
 def test_refusals():
     pos, kw = _port_kw(*HUGE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pdual.render_wavefront_dual(*pos, n_workers=2, **kw)
+    with pytest.raises(ValueError, match="worker_index"):
+        pdual.render_wavefront_dual(*pos, worker_index=2, n_workers=2, **kw)
     with pytest.raises(ValueError, match="int32 ray-id"):
         pdual.render_wavefront_dual(*pos, **dict(kw, width=1 << 16,
                                                  height=1 << 15, spp=1))
