@@ -115,7 +115,13 @@ Phases (one JSON object per line on standard output):
                    kernel and the dual-pool engine (its kernels against
                    its plain versions, and against the single pool).
   frame_vs_golden  the kernel path against the committed frames that the
-                   JAX package rendered (testdata/golden_*.npz).
+                   JAX package rendered (testdata/golden_*.npz), and the
+                   main path's frame (render_wavefront, default options,
+                   thin lens) on the card against the port's scalar NumPy
+                   oracle (oracle/scalar.py) run on the host in this
+                   process: the simple scene at 24x16, 4 spp, depth 8 and
+                   the huge scene at 32x24, 2 spp, depth 6, under the frame
+                   rule (golden.compare_frames).
   main_path        the full-width render -- huge scene, 1200x800, 100 spp,
                    depth 50, thin lens, default options -- through the CLI
                    (writes a PNG into the kernels' build directory) with the
@@ -193,6 +199,14 @@ Phases (one JSON object per line on standard output):
                    of the pool and of the planar engine taken apart, the
                    batch's iteration budget and a flat-budget step, and the
                    pool's pixels and gradients against the planar engine's.
+                   The depth-16 fit's pixel batches are drawn on the card
+                   (jax.random's choice: two stable sorts of 960000 u32
+                   keys a step); its first two, recorded in an untimed
+                   two-step run of the same fit, must equal, bit for bit,
+                   the ones the JAX package drew on the CPU
+                   (testdata/golden_fit_simple_cuda.npz); the draw alone
+                   is timed beside a host torch.randperm of the same size
+                   and its copy to the card.
   surrogate_path   the gradient surrogates (ops/silhouette.py,
                    ops/branchprob.py) on the card: each term's value and
                    gradient (centers, radii, ior) at the CPU tests' small
@@ -208,7 +222,25 @@ Phases (one JSON object per line on standard output):
                    around each launch) and the peak device memory, one
                    step taken apart into the interior and each term, and
                    one step under torch.profiler for the host's share.
-  cli_fit          ``fit`` through the CLI on the small scene (200x112,
+  cli_fit          the JAX CLI's fit trajectory on the card: the port's CLI
+                   ``fit`` with the flags of testdata/golden_fit_simple_cuda
+                   .npz (simple-cuda, 48x32, 2 spp, depth 4, albedo and
+                   centers, 8 steps of 512 pixels) held to what the JAX
+                   CLI recorded on the CPU (golden.cli_fit_against_golden):
+                   the perturbation and every step's pixel ids bit-equal,
+                   the losses within golden.fit_tolerance, Adam replayed
+                   over the run's own gradients equal to its parameters;
+                   the final parameters of the same fit on this machine's
+                   CPU, the control, within golden.fit_tolerance; the
+                   card's reported against that compounded bound, and
+                   each of its steps, taken alone
+                   from JAX's state (the golden's parameters, and Adam's
+                   moments rebuilt from JAX's recorded gradients), must
+                   reach JAX's next parameters within the one-step bound
+                   on every element (golden.fit_steps_from_jax); each
+                   step's gradient against JAX's is reported
+                   (golden.fit_gradient_gap). Then ``fit`` through the CLI
+                   on the small scene (200x112,
                    20 steps, a checkpoint written, reloaded and resumed),
                    then once more with --rr-terminate at the CLI's depth
                    32, where --ad-engine auto is the regenerative AD pool,
@@ -450,6 +482,7 @@ import dataclasses
 import functools
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2815,6 +2848,51 @@ def frame_vs_plain_phase(rt, torch, nvidia_smi: str):
     return float(img_k.mean())
 
 
+# the main path's frame against the port's scalar oracle (frame_vs_golden):
+# (scene, width, height, spp, depth, seed); the huge scene at the golden
+# crop, where the 1% rule has room for its knife edges
+ORACLE_FRAMES = (("simple-cpu", 24, 16, 4, 8, 0), ("huge", 32, 24, 2, 6, 0))
+ORACLE_CAM = dict(position=(-4.0, 3.2, 5.0), lookat=(0.0, 1.0, 0.0),
+                  up=(0.0, 1.0, 0.0), vfov=42.0, aperture=0.0625,
+                  focus=math.dist((-4.0, 3.2, 5.0), (0.0, 1.0, 0.0)))
+
+
+def oracle_frames(rt, torch) -> dict:
+    """The main path (render_wavefront, default options, thin lens) on the
+    card against the port's oracle on the host -> {name: record}."""
+    from raytracinginoneweekend_tpu_torch import golden, kernels
+    from raytracinginoneweekend_tpu_torch.models import camera
+    from raytracinginoneweekend_tpu_torch.models import scene as scenes
+    from raytracinginoneweekend_tpu_torch.oracle import render_oracle
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, w, h, spp, depth, seed in ORACLE_FRAMES:
+        scn = (scenes.simple_scene_cpu(dev) if name == "simple-cpu"
+               else scenes.huge_scene(seed, dev))
+        c = ORACLE_CAM
+        cam = camera.make_camera(c["position"], c["lookat"], c["up"], w / h,
+                                 c["vfov"], c["aperture"], c["focus"],
+                                 device=dev)
+        kernels.reset_launches()
+        got = rt.render_wavefront(
+            scn, cam, rt.key_words(seed), width=w, height=h, spp=spp,
+            max_depth=depth, camera_mode="thinlens", options=rt.DEFAULT,
+            pool_size=4096, device=dev)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        want = render_oracle(scn, c, w, h, spp, depth, rt.key_words(seed),
+                             camera_mode="thinlens", options=rt.DEFAULT)
+        oracle_s = time.perf_counter() - t0
+        atol = 5e-4 if name == "huge" else 3e-5
+        out[f"{name}_{w}x{h}_{spp}spp_d{depth}"] = dict(
+            golden.compare_frames(got.cpu().numpy(), want, atol=atol),
+            atol=atol, oracle_seconds=oracle_s,
+            launches={k: v for k, v in launches.items() if v})
+    return out
+
+
 def frame_vs_golden_phase(rt, torch, nvidia_smi: str):
     from raytracinginoneweekend_tpu_torch import golden
 
@@ -2825,10 +2903,19 @@ def frame_vs_golden_phase(rt, torch, nvidia_smi: str):
         atol = 5e-4 if flags["scene"] == "huge" else 3e-5
         out[name] = dict(golden.compare_frames(got.cpu().numpy(), want,
                                                atol=atol), atol=atol)
-    emit({"phase": "frame_vs_golden", "card": nvidia_smi, "frames": out})
+    oracle = oracle_frames(rt, torch)
+    emit({"phase": "frame_vs_golden", "card": nvidia_smi, "frames": out,
+          "against_oracle": oracle})
     for name, cmp in out.items():
         require(cmp["ok"], f"{name}: the card's frame differs from the "
                 f"JAX-made golden frame: {cmp}")
+    for name, cmp in oracle.items():
+        require(cmp["ok"], f"{name}: the card's frame differs from the "
+                f"port's scalar oracle: {cmp}")
+        require(cmp["launches"].get("closest_hit", 0) > 0
+                and cmp["launches"].get("shade_regen", 0) > 0,
+                f"{name}: the frame did not go through the kernels: "
+                f"{cmp['launches']}")
 
 
 def require_fused_launches(launches: dict, iters: int, what: str) -> None:
@@ -3751,7 +3838,7 @@ def train_path_phase(rt, torch, nvidia_smi: str):
     import importlib
     import statistics
 
-    from raytracinginoneweekend_tpu_torch import cli, kernels, optim
+    from raytracinginoneweekend_tpu_torch import cli, golden, kernels, optim
     from raytracinginoneweekend_tpu_torch.optim import inverse
 
     prender = importlib.import_module(
@@ -3816,6 +3903,14 @@ def train_path_phase(rt, torch, nvidia_smi: str):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     peak_fit = torch.cuda.max_memory_allocated()
+    # the same fit's first two steps again, untimed, with each step's
+    # pixel batch recorded
+    with golden.record_fit() as drawn:
+        optim.fit(perturbed, cam, target, cfg, which=which, steps=2,
+                  learning_rate=TRAIN["lr"],
+                  batch_pixels=TRAIN["batch_pixels"], spp=TRAIN["spp"],
+                  engine="auto", device=dev)
+    draws = full_width_draws(torch, inverse, golden, drawn["ids"], w * h)
 
     step_s = [b - a for a, b in zip(stamps, stamps[1:])]
     timed = step_s[TRAIN["warmup_steps"]:]
@@ -3911,12 +4006,69 @@ def train_path_phase(rt, torch, nvidia_smi: str):
           "peak_bytes_target": peak_target, "peak_bytes_fit": peak_fit,
           "one_step_parts": parts, "tiled_step_seconds": tiled_step_s,
           "tiled_step_loss": tiled_loss,
-          "grad_planar_vs_tiled": diff, "grad_pixels": px})
+          "grad_planar_vs_tiled": diff, "grad_pixels": px,
+          "pixel_draws": draws})
+    pending.append((draws["fit_draws_equal_jax"] and draws["draw_equal_jax"],
+                    f"fit's pixel batches differ from the JAX package's: "
+                    f"{draws}"))
     for cond, what in pending:
         require(cond, what)
     train_pool_path(rt, torch, nvidia_smi, scene, perturbed, cam, which,
                     options)
     return launches
+
+
+def full_width_draws(torch, inverse, golden, fit_ids, n_pixels: int) -> dict:
+    """fit's pixel batches at full width against the JAX package's: the
+    batches the fit drew on the card (``fit_ids``, its first steps) and
+    the golden's (drawn by JAX on the CPU at the same base key and size),
+    bit for bit; then the draw alone timed on the card against the host
+    draw it replaces (torch.randperm of n_pixels from a torch.Generator,
+    then the copy of the batch to the card), medians of ``reps``."""
+    import statistics
+
+    import numpy as np
+
+    from raytracinginoneweekend_tpu_torch.ops.threefry import key_words
+
+    g = golden.load_fit_golden()
+    want = g["full_width_ids"]
+    require(int(g["full_width_width"]) * int(g["full_width_height"])
+            == n_pixels and want.shape[1] == TRAIN["batch_pixels"],
+            f"the golden's full-width draw is not this fit's: {want.shape}")
+    equal = len(fit_ids) >= len(want) and all(
+        np.array_equal(a, b) for a, b in zip(fit_ids, want))
+    dev = torch.device("cuda")
+    base, batch, reps = key_words(int(g["full_width_base_seed"])), \
+        TRAIN["batch_pixels"], 20
+
+    def device_draw(i):
+        return inverse.draw_pixel_batch(inverse.step_keys(base, i)[0],
+                                        n_pixels, batch, dev)
+
+    def host_draw(i):
+        gen = torch.Generator(device="cpu").manual_seed(1000 + i)
+        perm = torch.randperm(n_pixels, generator=gen)[:batch]
+        return perm.to(torch.int32).to(dev)
+
+    times = {}
+    for name, fn in (("device", device_draw), ("host_randperm", host_draw)):
+        fn(0)  # warm
+        torch.cuda.synchronize()
+        ms = []
+        for i in range(reps):
+            t0 = time.perf_counter()
+            fn(i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        times[name] = {"median_ms": statistics.median(ms),
+                       "min_ms": min(ms), "max_ms": max(ms)}
+    again = [device_draw(i).cpu().numpy() for i in range(len(want))]
+    return {"fit_draws_equal_jax": bool(equal),
+            "draw_equal_jax": all(np.array_equal(a, b)
+                                  for a, b in zip(again, want)),
+            "steps_checked": len(want), "n_pixels": n_pixels,
+            "batch_pixels": batch, "draw_ms": times}
 
 
 @contextlib.contextmanager
@@ -4100,7 +4252,50 @@ def train_pool_path(rt, torch, nvidia_smi, scene, perturbed, cam, which,
 
 
 def cli_fit_phase(rt, torch, nvidia_smi: str):
-    from raytracinginoneweekend_tpu_torch import cli, kernels, optim
+    from raytracinginoneweekend_tpu_torch import cli, golden, kernels, optim
+
+    # The JAX CLI's fit trajectory (recorded on the CPU) through the port's
+    # CLI, on the card and, as the control, on this machine's host: ids
+    # and perturbation bit-equal, every loss within its rtol, and Adam
+    # replayed on the CPU over the run's own gradients giving its
+    # parameters bit for bit, on both; the final parameters within the
+    # compounded bound on the host, and on the card reported against it
+    # (rounding that Adam carries can leave it there). Each step, taken
+    # alone from JAX's own state, must reach JAX's next parameters within
+    # the one-step bound on every element, on the card and on the host
+    # (golden.fit_steps_from_jax); each step's gradient against JAX's (on
+    # the host, on the card, with the host's sines and cosines, and with
+    # those and the host's target) says where the two part.
+    import numpy as np
+
+    host = golden.cli_fit_against_golden("cpu")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    traj = golden.cli_fit_against_golden()
+    traj.update(seconds=time.perf_counter() - t0,
+                launches={k: v for k, v in kernels.LAUNCHES.items() if v})
+    card_rec, host_rec = traj.pop("record"), host.pop("record")
+    traj["card_vs_host_max_abs"] = {
+        k[len("final_"):]: float(np.abs(card_rec[k] - host_rec[k]).max())
+        for k in card_rec if k.startswith("final_")}
+    steps = {"card": golden.fit_steps_from_jax(),
+             "host": golden.fit_steps_from_jax("cpu")}
+    gap = golden.fit_gradient_gap()
+    emit({"phase": "cli_fit", "part": "jax_trajectory", "card": nvidia_smi,
+          **traj, "host": host, "steps_from_jax": steps,
+          "gradient_gap": gap})
+    require(host["ok"], f"the CLI's fit on the host left the JAX "
+            f"trajectory: {host['checks']} {host['outside']}")
+    require(all(v for k, v in traj["checks"].items() if k != "params"),
+            f"the CLI's fit on the card left the JAX trajectory: "
+            f"{traj['checks']}")
+    for where, res in steps.items():
+        require(res["ok"], f"a fit step on the {where}, taken from JAX's "
+                f"state, left JAX's step: {res['checks']} {res['outside']}")
+    require(traj["launches"].get("intersect", 0) > 0
+            and traj["launches"].get("closest_hit", 0) > 0,
+            f"the golden fit did not go through the kernels: "
+            f"{traj['launches']}")
 
     ckpt = os.path.join(kernels.BUILD_DIR, "chip_smoke_fit.npz")
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)

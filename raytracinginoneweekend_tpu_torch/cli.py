@@ -225,7 +225,7 @@ def _join_group(args) -> None:
 def _render_image(args):
     """-> ((H, W, 3) linear radiance tensor on the device, RenderConfig)."""
     from .config import RenderConfig
-    from .ops.threefry import key_words
+    from .ops.threefry import key_words, normal, split
     from .ops.wavefront import render_wavefront
     from .utils.device import resolve_device
 
@@ -409,14 +409,14 @@ def _fit_impl(args, log=print) -> dict:
     """The fit pipeline (perturb -> recover); returns a result dict.
 
     The target is rendered by the tiled engine (``render.render``); the
-    parameters named by ``--params`` are perturbed with normal noise drawn
-    from a ``torch.Generator`` seeded with ``--seed + 1`` (not the JAX
-    package's draws: see optim/inverse.py) and recovered by ``optim.fit``.
+    parameters named by ``--params`` are perturbed with the JAX package's
+    normal noise (from the key of ``--seed + 1``, split once a leaf:
+    ``k, sub = split(k)``, ``--perturb * normal(sub, leaf.shape)``) and
+    recovered by ``optim.fit``, whose pixel batches and Adam are the JAX
+    package's too.
     """
-    import torch
-
     from .config import RenderConfig
-    from .ops.threefry import key_words
+    from .ops.threefry import key_words, normal, split
     from .optim import (fit, load_checkpoint, params_from_scene,
                         save_checkpoint)
     from .render import render
@@ -437,14 +437,14 @@ def _fit_impl(args, log=print) -> dict:
     target = render(scene, cam, cfg, key_words(args.seed), device=device)
 
     # Perturb the optimizable leaves, then recover them.
-    gen = torch.Generator(device="cpu").manual_seed(args.seed + 1)
+    k = key_words(args.seed + 1)
     which = tuple(args.params.split(","))
     perturbed = scene
     for name in which:
         leaf = getattr(scene, name)
-        noise = args.perturb * torch.randn(leaf.shape, generator=gen,
-                                           dtype=torch.float32)
-        perturbed = perturbed._replace(**{name: leaf + noise.to(device)})
+        k, sub = split(k)
+        noise = args.perturb * normal(sub, leaf.shape, device)
+        perturbed = perturbed._replace(**{name: leaf + noise})
 
     init = {}
     if args.resume:

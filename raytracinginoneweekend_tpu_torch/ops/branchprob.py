@@ -43,6 +43,7 @@ from ..config import TraceOptions
 from ..models.camera import Camera
 from ..models.scene import Scene
 from . import threefry as tf
+from .math3 import sqrt_rn
 from .silhouette import (PROBE_RR_QCAP, _cat_keys, _fold_keys,
                          _probe_options, detach_scene)
 
@@ -56,7 +57,7 @@ def _refract_dir_clamped(u, outward, ri, cos_o, k, phys: bool):
     NaN/zero, which is what the TIR-band smoothing crosses through.
     """
     kp = k > 0.0
-    sq = torch.where(kp, torch.sqrt(torch.where(kp, k, torch.ones_like(k))),
+    sq = torch.where(kp, sqrt_rn(torch.where(kp, k, torch.ones_like(k))),
                      torch.zeros_like(k))
     if phys:
         return ri[:, None] * u - (ri * cos_o + sq)[:, None] * outward

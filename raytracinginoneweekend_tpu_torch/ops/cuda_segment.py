@@ -561,7 +561,7 @@ def sorted_cull_state(active, origins, cx, cy, cz, r, rows: int):
     ocz = (m * blk(oz)).sum(dim=1) / safe_n
 
     rabs = torch.abs(r)[None, :]
-    keys = torch.sqrt((cx[None, :] - ocx[:, None]) ** 2
+    keys = sqrt_rn((cx[None, :] - ocx[:, None]) ** 2
                       + (cy[None, :] - ocy[:, None]) ** 2
                       + (cz[None, :] - ocz[:, None]) ** 2
                       ) - rabs - _SORT_KEY_MARGIN
@@ -811,7 +811,7 @@ def group_scene(sphere_params):
     gy = (by.amin(dim=1) + by.amax(dim=1)) * 0.5
     gz = (bz.amin(dim=1) + bz.amax(dim=1)) * 0.5
     ex, ey, ez = bx - gx[:, None], by - gy[:, None], bz - gz[:, None]
-    d = torch.sqrt(ex * ex + ey * ey + ez * ez)
+    d = sqrt_rn(ex * ex + ey * ey + ez * ez)
     gr = (d + torch.abs(br)).amax(dim=1)
     return tuple(params), (gx, gy, gz, gr)
 

@@ -40,6 +40,8 @@ from __future__ import annotations
 
 import torch
 
+from .math3 import sqrt_rn
+
 LANES = 128
 UNROLL_LIST = 4      # list counts are rounded up to this (the JAX contract)
 _MARGIN = 3e-2       # absolute world-space slack over f32 bound errors
@@ -75,14 +77,14 @@ def block_cone_stats(active, rays, rows: int):
     o0x, o0y, o0z = msum(bx) / safe_n, msum(by) / safe_n, msum(bz) / safe_n
     d2 = ((bx - o0x[:, None]) ** 2 + (by - o0y[:, None]) ** 2
           + (bz - o0z[:, None]) ** 2)
-    ro = torch.sqrt(mmax(d2, 0.0))
+    ro = sqrt_rn(mmax(d2, 0.0))
 
     ddx, ddy, ddz = blk(dx), blk(dy), blk(dz)
-    dn = torch.sqrt(ddx * ddx + ddy * ddy + ddz * ddz)
+    dn = sqrt_rn(ddx * ddx + ddy * ddy + ddz * ddz)
     dn_safe = torch.where(dn > 0, dn, zero + 1.0)
     wx, wy, wz = ddx / dn_safe, ddy / dn_safe, ddz / dn_safe
     umx, umy, umz = msum(wx) / safe_n, msum(wy) / safe_n, msum(wz) / safe_n
-    ul = torch.sqrt(umx * umx + umy * umy + umz * umz)
+    ul = sqrt_rn(umx * umx + umy * umy + umz * umz)
     degenerate = ul < 1e-6
     ul_safe = torch.where(degenerate, zero + 1.0, ul)
     ux, uy, uz = umx / ul_safe, umy / ul_safe, umz / ul_safe
@@ -109,11 +111,11 @@ def candidate_mask(stats, cx, cy, cz, radii, t_min: float):
     ux, uy, uz = (stats[k][:, None] for k in ("ux", "uy", "uz"))
     ro = stats["ro"][:, None]
     cosa = stats["cosa"][:, None]
-    sina = torch.sqrt(torch.clamp(1.0 - cosa * cosa, 0.0, 1.0))
+    sina = sqrt_rn(torch.clamp(1.0 - cosa * cosa, 0.0, 1.0))
 
     a1 = vx * ux + vy * uy + vz * uz
     vv = vx * vx + vy * vy + vz * vz
-    perp = torch.sqrt(torch.clamp(vv - a1 * a1, min=0.0))
+    perp = sqrt_rn(torch.clamp(vv - a1 * a1, min=0.0))
     r_eff = rabs + ro + _MARGIN
     e = cosa * perp - sina * a1
     keep = (e <= r_eff) & (a1 >= -r_eff)
@@ -122,12 +124,12 @@ def candidate_mask(stats, cx, cy, cz, radii, t_min: float):
     narrow = stats["cosa"] > _MIN_COSA
     tana = sina / torch.where(cosa > _MIN_COSA, cosa, torch.ones_like(cosa))
     m_hi = perp + ro + torch.clamp(a1, min=0.0) * tana
-    vlen = torch.sqrt(vv)
+    vlen = sqrt_rn(vv)
     near = vlen - rabs - ro              # earliest possible hit distance
     t_min_w = t_min * stats["dn_hi"][:, None]
     sure = (narrow[:, None] & (a1 > 0.0) & (m_hi + _MARGIN <= rabs)
             & (near > t_min_w + _MARGIN))
-    s_occ_s = vlen + ro - torch.sqrt(
+    s_occ_s = vlen + ro - sqrt_rn(
         torch.clamp(rabs * rabs - m_hi * m_hi, min=0.0))
     s_occ = torch.where(sure, s_occ_s,
                         torch.full_like(s_occ_s, inf)).amin(dim=1)
@@ -145,7 +147,7 @@ def candidate_mask(stats, cx, cy, cz, radii, t_min: float):
     down = (r_g > 100.0) & (wy_hi < -0.05) & (oy_rel > stats["ro"])
     wy_safe = torch.where(down, -wy_hi, torch.ones_like(wy_hi))
     s_plane = (oy_rel + stats["ro"]) / wy_safe
-    rh = (torch.sqrt((stats["o0x"] - cx[g]) ** 2
+    rh = (sqrt_rn((stats["o0x"] - cx[g]) ** 2
                      + (stats["o0z"] - cz[g]) ** 2)
           + stats["ro"] + s_plane)
     drop = rh * rh / (2.0 * r_g)

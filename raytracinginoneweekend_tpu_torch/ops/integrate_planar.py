@@ -50,6 +50,7 @@ from ..models.scene import DIELECTRIC, METAL, Scene
 from . import planar, rng
 from .cuda_segment import segment_closest_hit
 from .intersect import gather_rows, sum_by_winner
+from .math3 import sqrt_rn
 
 LANES = 128
 SKY_WHITE = planar.SKY_WHITE
@@ -219,7 +220,7 @@ def scatter_planar_ad(dirs, normals, mats, draws, options: TraceOptions):
     kk = 1.0 - ri * ri * (1.0 - cos_i * cos_i)
     pos = kk > 0.0
     # double-where: sqrt never sees <=0, so its backward never sees inf
-    sq = torch.where(pos, torch.sqrt(torch.where(pos, kk, one)), zero)
+    sq = torch.where(pos, sqrt_rn(torch.where(pos, kk, one)), zero)
     tir = kk < 0.0
     if options.refract == "physical":
         tx = ri * ux - (ri * cos_i + sq) * owx

@@ -55,10 +55,24 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     first call in a process has rounded otherwise than the later calls on
     the same inputs. The float64 root rounds to the nearest float32
     exactly (53 >= 2 * 24 + 2 bits). Other dtypes and devices take
-    torch.sqrt."""
+    torch.sqrt. Every plain version's float32 square root goes through it,
+    so the CPU comparisons with the JAX package see XLA's roots."""
     if x.dtype == torch.float32 and x.device.type == "cpu":
         return torch.sqrt(x.double()).float()
     return torch.sqrt(x)
+
+
+def fma_rn(a, b, c) -> torch.Tensor:
+    """a * b + c rounded once to float32, as a fused multiply-add is (XLA
+    contracts a multiply feeding an add into one): the exact product of two
+    float32 values plus c in float64, then float32. That differs from the
+    fused result only where the float64 sum rounds to a float32 tie, about
+    once in 2**29. a, b, c: float32 tensors or Python floats that are
+    float32 values."""
+    a = a.double() if isinstance(a, torch.Tensor) else a
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    return (a * b + c).float()
 
 
 def normalize(v: torch.Tensor) -> torch.Tensor:
@@ -68,7 +82,7 @@ def normalize(v: torch.Tensor) -> torch.Tensor:
     is applied UNDER the sqrt too: its backward is inf at exactly 0."""
     l2 = norm2(v)[..., None]
     good = l2 > FLT_MIN * FLT_MIN
-    l = torch.sqrt(torch.where(good, l2, torch.ones_like(l2)))
+    l = sqrt_rn(torch.where(good, l2, torch.ones_like(l2)))
     return torch.where(good, v / l, v)
 
 
@@ -90,7 +104,7 @@ def _refract_terms(i, n, eta):
     # Double-where: sqrt's backward is inf at k == 0 (the grazing/TIR
     # boundary) and would NaN the masked branch in reverse mode.
     pos = k > 0.0
-    sq = torch.where(pos, torch.sqrt(torch.where(pos, k, torch.ones_like(k))),
+    sq = torch.where(pos, sqrt_rn(torch.where(pos, k, torch.ones_like(k))),
                      torch.zeros_like(k))
     return eta, cos_i, sq, tir
 

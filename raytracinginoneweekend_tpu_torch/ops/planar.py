@@ -32,7 +32,7 @@ from ..models.camera import Camera
 from ..models.scene import DIELECTRIC, METAL
 from . import rng
 from . import threefry as tf
-from .math3 import FLT_MIN
+from .math3 import FLT_MIN, sqrt_rn
 
 LANES = 128
 
@@ -95,7 +95,7 @@ def strat0_scatter_planes(k0, k1, pid, sid, base_words, spp: int,
 
 def normalize3(x, y, z):
     """Planar math3.normalize (FLT_MIN guard, math.hxx:226-233)."""
-    l = torch.sqrt(x * x + y * y + z * z)
+    l = sqrt_rn(x * x + y * y + z * z)
     good = l > FLT_MIN
     inv = 1.0 / torch.where(good, l, torch.ones_like(l))
     return (torch.where(good, x * inv, x), torch.where(good, y * inv, y),
@@ -155,7 +155,7 @@ def bounce_planar(seg, dirs, k0, k1, depth, *, unit_sample: bool,
     cos_i = owx * ux + owy * uy + owz * uz  # dot(outward, unit_dir)
     kk = 1.0 - ri * ri * (1.0 - cos_i * cos_i)
     tir = kk < 0.0
-    sq = torch.sqrt(rng.nan_max(kk, 0.0))
+    sq = sqrt_rn(rng.nan_max(kk, 0.0))
     if phys_refract:
         tx = ri * ux - (ri * cos_i + sq) * owx
         ty = ri * uy - (ri * cos_i + sq) * owy

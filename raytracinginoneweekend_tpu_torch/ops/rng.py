@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from . import threefry as tf
+from .math3 import sqrt_rn
 
 TAG_JITTER = 0
 TAG_LENS = 1
@@ -166,7 +167,7 @@ def unit_from_uv(u0, u1):
     """Uniform unit direction from two uniforms (polar/Archimedes map):
     z uniform on [-1, 1), azimuth uniform. Returns (x, y, z)."""
     z = 2.0 * u0 - 1.0
-    rho = torch.sqrt(nan_max(1.0 - z * z, 0.0))
+    rho = sqrt_rn(nan_max(1.0 - z * z, 0.0))
     phi = TWO_PI * u1
     return rho * torch.cos(phi), rho * torch.sin(phi), z
 
@@ -174,7 +175,7 @@ def unit_from_uv(u0, u1):
 def disk_from_uv(u0, u1):
     """Uniform point in the unit disk from two uniforms (componentwise)."""
     theta = TWO_PI * u0
-    r = torch.sqrt(u1)
+    r = sqrt_rn(u1)
     return torch.cos(theta) * r, torch.sin(theta) * r
 
 

@@ -34,7 +34,7 @@ def _opt_leaves(opt_state: dict) -> list:
 def save_checkpoint(path: str, params: dict, optimizer, step: int) -> None:
     """Atomically write params + optimizer state + step to ``path`` (.npz).
 
-    ``optimizer``: the ``torch.optim.Adam`` bound to ``params``, or its
+    ``optimizer``: the ``Adam`` (``make_adam``) bound to ``params``, or its
     state in optax's layout (``adam_state_to_numpy``'s dict)."""
     opt_state = (optimizer if isinstance(optimizer, dict)
                  else adam_state_to_numpy(optimizer, params))

@@ -15,16 +15,15 @@ PyTorch's idiom where it differs from the JAX package's:
     ``requires_grad``; a ``torch.optim`` optimiser is bound to them, holds
     its own state and updates the tensors in place, so a train step
     returns the loss only;
-  * the optimiser is ``torch.optim.Adam`` with optax's constants
-    (b1 0.9, b2 0.999, eps 1e-8, bias-corrected moments, eps outside the
-    root): the same update as ``optax.adam(lr)`` up to rounding;
-  * ``fit``'s host-side draws -- the pixel minibatch -- come from an
-    explicit ``torch.Generator`` seeded from the step key's words, not from
-    JAX's shuffle, so a whole ``fit`` trajectory differs from the JAX
-    package's by design. The step keys themselves (``fold_in(base, i)``,
-    then ``fold_in(., 0)`` / ``fold_in(., 1)``) are the JAX package's bit
-    for bit, and at the step level -- where ``pixel_ids`` and the key are
-    arguments -- the two packages agree.
+  * the optimiser is ``Adam``, this module's ``torch.optim.Optimizer``
+    with ``optax.adam``'s float32 arithmetic in the order XLA runs it
+    inside the JAX package's jitted train step (see ``Adam``);
+  * ``fit``'s draws are jax.random's: each step's pixel batch is
+    ``choice(fold_in(fold_in(base, i), 0), n_pixels, (batch,),
+    replace=False)`` (``draw_pixel_batch``, on the step's device), and
+    the render key ``fold_in(fold_in(base, i), 1)``. So a whole ``fit``
+    draws the JAX package's pixel ids bit for bit and follows its
+    trajectory up to the float32 rounding of the gradients.
 
 The gradient surrogates are carried (``boundary_samples``,
 ``secondary_samples`` with ``secondary_spheres`` /
@@ -55,6 +54,8 @@ from ..config import RenderConfig
 from ..models.camera import Camera
 from ..models.scene import Scene
 from ..ops import threefry as tf
+from ..ops.math3 import fma_rn, sqrt_rn
+from ..ops.rng import _f32
 from ..render import render_pixels_impl
 from ..utils.device import resolve_device
 
@@ -95,12 +96,72 @@ def scene_with_params(scene: Scene, params: dict) -> Scene:
 # Adam state <-> optax's (count, mu, nu)
 # ---------------------------------------------------------------------------
 
-def make_adam(params: dict, learning_rate: float) -> torch.optim.Adam:
-    """``torch.optim.Adam`` over the parameter dict with the constants of
-    ``optax.adam(learning_rate)``: b1 0.9, b2 0.999, eps 1e-8 (outside the
-    root), bias-corrected moments, no weight decay."""
-    return torch.optim.Adam([params[k] for k in sorted(params)],
-                            lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+def _bias_correction(decay: float, count: int) -> float:
+    """optax's ``1 - decay**count`` in float32: the float64 power rounded
+    to float32, then the float32 subtraction -- XLA:CPU's value at every
+    count tests/test_torch_fit_draws.py checks (1 to 2000)."""
+    return _f32(np.float32(1.0) - np.float32(
+        np.float64(np.float32(decay)) ** count))
+
+
+class Adam(torch.optim.Optimizer):
+    """``optax.adam(lr, b1, b2, eps)`` as the JAX package's train step runs
+    it: every operation in float32, with an int32 step count. XLA:CPU
+    fuses optax's update and ``apply_updates`` into
+
+        mu = g * (1 - b1) + mu * b1          (one fused multiply-add)
+        nu = g * g * (1 - b2) + nu * b2      (one fused multiply-add)
+        count = count + 1
+        u  = mu / ((1 - b1**count) * (sqrt(nu / (1 - b2**count)) + eps))
+        p  = u * (-lr) + p                   (one fused multiply-add)
+
+    -- the bias corrections in float32, and mu_hat / (sqrt(nu_hat) + eps)
+    regrouped by XLA's simplifier into one division. The result is
+    bit-equal with ``jax.jit`` of optax's update on the CPU
+    (tests/test_torch_fit_draws.py); op by op, un-jitted, optax rounds
+    otherwise, within 1e-4 * lr over ten steps. The state is kept in
+    ``torch.optim.Adam``'s names (``step``, ``exp_avg``, ``exp_avg_sq``), so
+    ``adam_state_to_numpy`` / ``adam_state_from_numpy`` and the checkpoint
+    carry it across to optax's (count, mu, nu)."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Adam.step takes no closure")
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.int32)
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                count = min(int(st["step"]) + 1, 2 ** 31 - 1)
+                st["step"] = torch.tensor(count, dtype=torch.int32)
+                g = p.grad
+                mu = fma_rn(g, _f32(1.0 - b1), st["exp_avg"] * _f32(b1))
+                nu = fma_rn(g * g, _f32(1.0 - b2), st["exp_avg_sq"] * _f32(b2))
+                # device tensors, not Python scalars: CUDA divides by a
+                # host scalar through its reciprocal
+                c1 = torch.full((), _bias_correction(b1, count),
+                                device=p.device)
+                c2 = torch.full((), _bias_correction(b2, count),
+                                device=p.device)
+                u = mu / (c1 * (sqrt_rn(nu / c2) + _f32(group["eps"])))
+                p.copy_(fma_rn(u, _f32(-group["lr"]), p))
+                st["exp_avg"], st["exp_avg_sq"] = mu, nu
+
+
+def make_adam(params: dict, learning_rate: float) -> Adam:
+    """``Adam`` over the parameter dict (sorted names) with the constants
+    of ``optax.adam(learning_rate)``: b1 0.9, b2 0.999, eps 1e-8."""
+    return Adam([params[k] for k in sorted(params)], lr=learning_rate)
 
 
 def _param_slots(optimizer: torch.optim.Optimizer, params: dict) -> dict:
@@ -508,14 +569,12 @@ def step_keys(base_key, i: int):
 def draw_pixel_batch(batch_key, n_pixels: int, batch_pixels: int,
                      device) -> torch.Tensor:
     """``batch_pixels`` distinct pixel ids, an i32 tensor on ``device``:
-    the head of a permutation drawn on the host from a ``torch.Generator``
-    seeded with the key's words (so the draw does not depend on the
-    device). Not JAX's shuffle: see the module docstring."""
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(((int(batch_key[0]) << 32) | int(batch_key[1]))
-                    & 0x7FFFFFFFFFFFFFFF)
-    perm = torch.randperm(n_pixels, generator=gen)[:batch_pixels]
-    return perm.to(torch.int32).to(device)
+    ``jax.random.choice(batch_key, n_pixels, (batch_pixels,),
+    replace=False)``, the JAX package's draw bit for bit, made on the
+    device (ops/threefry.choice_without_replacement: two stable sorts of
+    n_pixels u32 keys at 1200x800)."""
+    return tf.choice_without_replacement(
+        batch_key, n_pixels, batch_pixels, device).to(torch.int32)
 
 
 def fit(scene: Scene, cam: Camera, target_image, cfg: RenderConfig, *,

@@ -149,19 +149,26 @@ def test_three_train_steps_match_optax(engine):
 
 
 def test_adam_state_carries_across_and_continues_like_optax():
-    """optax's (count, mu, nu) -> torch.optim.Adam -> one more step."""
+    """optax's (count, mu, nu) -> the port's Adam -> one more step, equal
+    to the bit with optax's update under jax.jit (the form the JAX
+    package's train step runs)."""
     g = np.random.default_rng(2)
     arrays = {"albedo": g.random((4, 3), dtype=np.float32),
               "radii": g.random(5, dtype=np.float32)}
     grads = [{k: g.normal(size=v.shape).astype(np.float32)
               for k, v in arrays.items()} for _ in range(3)]
     jopt = optax.adam(3e-2)
+
+    @jax.jit
+    def update(p, s, gr):
+        u, s = jopt.update(gr, s, p)
+        return optax.apply_updates(p, u), s
+
     jparams = {k: jnp.asarray(v) for k, v in arrays.items()}
     jstate = jopt.init(jparams)
     for gr in grads[:2]:
-        upd, jstate = jopt.update({k: jnp.asarray(v) for k, v in gr.items()},
-                                  jstate, jparams)
-        jparams = optax.apply_updates(jparams, upd)
+        jparams, jstate = update(
+            jparams, jstate, {k: jnp.asarray(v) for k, v in gr.items()})
     params = poptim.params_from_numpy(
         {k: np.asarray(v) for k, v in jparams.items()}, device="cpu")
     opt = pinverse.make_adam(params, 3e-2)
@@ -173,18 +180,21 @@ def test_adam_state_carries_across_and_continues_like_optax():
     assert int(back["count"]) == 2
     np.testing.assert_array_equal(back["mu"]["radii"],
                                   np.asarray(jstate[0].mu["radii"]))
-    upd, jstate = jopt.update(
-        {k: jnp.asarray(v) for k, v in grads[2].items()}, jstate, jparams)
-    jparams = optax.apply_updates(jparams, upd)
+    jparams, jstate = update(
+        jparams, jstate, {k: jnp.asarray(v) for k, v in grads[2].items()})
     for k, p in params.items():
         p.grad = torch.from_numpy(grads[2][k])
     opt.step()
-    # optax takes 1 - b2**t in float32 (relative error ~2e-5 at t = 3),
-    # torch.optim.Adam in double: the update differs by lr * 1e-5
+    # optax's float32 bias correction, its fused multiply-adds and XLA's
+    # regrouped division: the same bits (tests/test_torch_fit_draws.py)
     for k in arrays:
-        np.testing.assert_allclose(params[k].detach().numpy(),
-                                   np.asarray(jparams[k]), rtol=1e-6,
-                                   atol=1e-6)
+        np.testing.assert_array_equal(params[k].detach().numpy(),
+                                      np.asarray(jparams[k]))
+    state = poptim.adam_state_to_numpy(opt, params)
+    assert int(state["count"]) == 3
+    for k in arrays:
+        np.testing.assert_array_equal(state["nu"][k],
+                                      np.asarray(jstate[0].nu[k]))
     # a fresh optimiser reads as zeros
     fresh = poptim.adam_state_to_numpy(pinverse.make_adam(params, 1e-2),
                                        params)

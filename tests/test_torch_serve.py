@@ -130,12 +130,10 @@ def test_bad_request_keeps_server_alive(server):
 
 def test_fit(server, capsys):
     """A fit request runs the train loop in the server and reports what
-    the same fit run locally reports. (The JAX test also asks that the
-    last step's loss be under the first's; the port draws its pixel
-    batches from a torch.Generator, so its six steps see other batches,
-    and over six noisy steps at 2 spp the two losses -- on different
-    batches -- fall either way. test_served_fit_converges holds a served
-    fit to falling where the signal rises above the noise.)"""
+    the same fit run locally reports, and, as the JAX test asks, a last
+    step's loss no higher than the first's: the port draws the JAX
+    package's pixel batches and perturbation and runs its Adam, so the six
+    steps are the JAX fit's."""
     req = {"scene": "simple-cuda", "width": 24, "height": 16, "spp": 2,
            "depth": 3, "mode": "pinhole", "params": "albedo", "steps": 6,
            "fit_spp": 2, "batch_pixels": 128, "ad_engine": "wavefront"}
@@ -143,6 +141,7 @@ def test_fit(server, capsys):
     assert resp["ok"], resp
     assert resp["steps"] == 6
     assert "albedo" in resp["errors"]
+    assert resp["loss_end"] <= resp["loss_start"]
     assert pcli.main(["fit", *_flags(req), "--device", "cpu"]) == 0
     said = capsys.readouterr().out
     assert (f"loss: {resp['loss_start']:.6f} -> {resp['loss_end']:.6f}"

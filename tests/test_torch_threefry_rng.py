@@ -376,3 +376,17 @@ def test_gumbel_close_and_categorical_picks_agree():
     assert (got != want).mean() <= 1e-3, (got != want).sum()
     picked = np.take_along_axis(q, got, axis=1)
     assert (picked[5:] > 0).all()  # never a -inf category
+
+
+def test_plain_square_roots_round_to_nearest_as_xla():
+    """torch.sqrt of a float32 tensor on the CPU is not rounded to
+    nearest (some inputs come out an ulp off); XLA's square root is. The plain versions take ops/math3.sqrt_rn. Held on the disk map's
+    radius: at u0 = 0 the disk point is (sqrt(u1), 0) in both packages
+    (cos 0 = 1, sin 0 = 0 exactly), so it is the square root alone."""
+    u1 = np.random.default_rng(7).random(3000, dtype=np.float32)
+    u0 = np.zeros_like(u1)
+    want = np.asarray(jax.jit(jrng.disk_from_uv)(u0, u1)[0])
+    old = torch.sqrt(torch.from_numpy(u1)).numpy()
+    assert (old != want).sum() >= 5  # the class: torch.sqrt is an ulp off
+    got = prng.disk_from_uv(torch.from_numpy(u0), torch.from_numpy(u1))[0]
+    np.testing.assert_array_equal(got.numpy(), want)
