@@ -1,0 +1,17 @@
+"""ad_epochs_ms.train: host milliseconds an optimiser step of the AD
+pool's epochs as the forward runs them, from the program's own span
+``rtw.ad.epoch`` over the profiled steps: the host's time to launch
+them (the read that waits for each lies outside it). A program without
+the span reports nothing."""
+
+from raytracinginoneweekend_tpu_torch.utils import timing
+
+NAME = "rtw.ad.epoch"
+
+
+def read(rec):
+    profiled = getattr(timing, "profiled", None)
+    if profiled is None or not rec.traced_units:
+        return None
+    seconds = profiled().seconds().get(NAME, 0.0)
+    return seconds / rec.traced_units * 1e3 if seconds > 0 else None

@@ -228,13 +228,15 @@ def _render_image(args):
     from .ops.threefry import key_words, normal, split
     from .ops.wavefront import render_wavefront
     from .utils.device import resolve_device
+    from .utils.timing import span
 
     _join_group(args)
     device = resolve_device(args.device)
-    scene = _build_scene(args.scene, args.seed, device)
-    camera_name = args.camera or ("cuda" if args.scene == "simple-cuda"
-                                  else "cpu")
-    cam = _build_camera(camera_name, args.width, args.height, device)
+    with span("rtw.render.scene"):
+        scene = _build_scene(args.scene, args.seed, device)
+        camera_name = args.camera or ("cuda" if args.scene == "simple-cuda"
+                                      else "cpu")
+        cam = _build_camera(camera_name, args.width, args.height, device)
     options = _options(args.compat, args.rr_terminate, args.sampling,
                        args.intersect, device, args.fusion,
                        args.hit_kernel, args.ownership)

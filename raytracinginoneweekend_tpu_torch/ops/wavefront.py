@@ -101,6 +101,7 @@ from ..config import TraceOptions
 from ..models.camera import Camera
 from ..models.scene import Scene
 from ..utils.device import on_device, resolve_device
+from ..utils.timing import span
 from . import cull
 from .cuda_fused import (ACT, N_BASE, pack_camera, regen, regen_reference,
                          shade_regen, shade_regen_reference, shade_update,
@@ -884,8 +885,9 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *,
         task finishes once, so every cell is written exactly once. In the
         scatter deposit (past the cap) the cell is the pixel.
     """
-    run = FrameRun(build_engine(scene, cam, base_key, **config),
-                   return_stats)
+    with span("rtw.wavefront.build"):
+        run = FrameRun(build_engine(scene, cam, base_key, **config),
+                       return_stats)
     while run.more():
         run.epoch()
     fb = run.framebuffer()
@@ -914,15 +916,19 @@ class FrameRun:
             return pending(self.ledger, self.state)
 
     def more(self) -> bool:
-        return bool(self.pending().item())
+        """Anything left to trace? One device->host read, which waits for
+        the epochs enqueued before it."""
+        with span("rtw.wavefront.read"):
+            return bool(self.pending().item())
 
     def epoch(self) -> None:
         """Run (or replay) one epoch; nothing is read to the host."""
         eng = self.eng
         with on_device(eng.device):
             if self.graph is None and self.iters and epoch_graphable(eng):
-                self.graph, self.per_epoch = capture_epoch(
-                    eng, self.state, self.ledger, self.segs)
+                with span("rtw.wavefront.capture"):
+                    self.graph, self.per_epoch = capture_epoch(
+                        eng, self.state, self.ledger, self.segs)
             if self.graph is not None:
                 self.graph.replay()
                 kernels.LAUNCHES.update(
@@ -934,7 +940,7 @@ class FrameRun:
 
     def framebuffer(self) -> torch.Tensor:
         """The UNNORMALIZED (H*W, 3) sums of this worker's tasks."""
-        with on_device(self.eng.device):
+        with on_device(self.eng.device), span("rtw.wavefront.fold"):
             return fold_ledger(self.eng, self.ledger.cells)
 
     def stats(self) -> dict:

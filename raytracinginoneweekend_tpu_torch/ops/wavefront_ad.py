@@ -66,6 +66,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import TraceOptions
 from ..models.camera import Camera
 from ..models.scene import Scene
+from ..utils.timing import span
 from . import planar, rng
 from .integrate_planar import (_material_table, _pick_rows,
                                closest_hit_planar, scatter_planar_ad,
@@ -303,16 +304,22 @@ def trace_wavefront_ad(scene: Scene, cam: Camera, pid_waves, sid_waves,
     shade = functools.partial(_shade_deposit, table, options, max_depth)
 
     def run(state, ledger, n_iters: int, tape):
-        """``n_iters`` pool iterations: regen -> closest hit -> shade."""
+        """``n_iters`` pool iterations: regen -> closest hit -> shade. The
+        backward runs a checkpointed call again (inside the autograd
+        engine's graph task), and is spanned apart."""
         if tape is not None:
             tape.pos = 0
-        for _ in range(n_iters):
-            state, strat0 = _regen(state, rays_all, n=n, w=w)
-            rays = state[3:9]
-            khit = (tape.closest_hit(rays, geom, options.t_min)
-                    if tape is not None
-                    else closest_hit_planar(rays, geom, options.t_min))
-            state, ledger = shade(state, khit, ledger, strat0=strat0)
+        recompute = torch._C._current_graph_task_id() != -1
+        with span("rtw.ad.recompute" if recompute else "rtw.ad.epoch"):
+            for _ in range(n_iters):
+                state, strat0 = _regen(state, rays_all, n=n, w=w)
+                rays = state[3:9]
+                khit = (tape.closest_hit(rays, geom, options.t_min)
+                        if tape is not None
+                        else closest_hit_planar(rays, geom, options.t_min))
+                with span("rtw.ad.shade"):
+                    state, ledger = shade(state, khit, ledger,
+                                          strat0=strat0)
         return state, ledger
 
     def checkpointed(state, ledger, n_iters: int):

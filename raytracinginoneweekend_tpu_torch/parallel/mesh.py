@@ -33,6 +33,7 @@ from ..ops.wavefront import FrameRun, build_engine
 from ..ops.wavefront_dual import SECONDARY_COPIES, DualRun, build_dual_engine
 from ..render import render_pixels_impl
 from ..utils.device import on_device, resolve_device
+from ..utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,12 +235,13 @@ def render_wavefront_sharded(scene: Scene, cam: Camera, base_key, *,
     pool_size is PER WORKER. return_stats: also return {"workers": [each local worker's
     {"iters", "segments", "lanes"}]}.
     """
-    runs = [FrameRun(build_engine(
-        scene, cam, base_key, width=width, height=height, spp=spp,
-        max_depth=max_depth, camera_mode=camera_mode, options=options,
-        pool_size=pool_size, worker_index=g, n_workers=mesh.size,
-        reserve_frac=reserve_frac, device=dev), return_stats)
-        for g, dev in mesh.workers()]
+    with span("rtw.wavefront.build"):
+        runs = [FrameRun(build_engine(
+            scene, cam, base_key, width=width, height=height, spp=spp,
+            max_depth=max_depth, camera_mode=camera_mode, options=options,
+            pool_size=pool_size, worker_index=g, n_workers=mesh.size,
+            reserve_frac=reserve_frac, device=dev), return_stats)
+            for g, dev in mesh.workers()]
     _drive(runs)
     fb = _ordered_sum(gather_workers(
         mesh, [r.framebuffer() for r in runs])) / float(spp)

@@ -18,7 +18,19 @@ Protocol: newline-delimited JSON over a Unix domain socket.
    "steps": 50, ...}
   {"cmd": "shutdown"}
 
-Responses: {"ok": true, ...} or {"ok": false, "error": "..."}. The
+Responses: {"ok": true, ...} or {"ok": false, "error": "..."}. A
+render's response carries ``seconds`` (the render, ending in a
+synchronise), ``launches`` (the port's kernels it launched, by kernel) and
+``spans``: an operator's view of where the request's time went, seconds
+by span name without the ``rtw.`` prefix (``utils/timing``'s list):
+``serve.request`` (the handler), ``serve.idle`` (the server's time since
+its previous response: about 0 when requests queue; the wait in the listen
+backlog is the kernel's and is not seen), ``render.scene`` (scene and
+camera build), ``wavefront.build``, ``wavefront.capture``,
+``wavefront.read``, ``wavefront.fold`` (the frame's engine; the reads
+wait for the card), ``serve.sync``, ``serve.to_host`` (quantise and copy)
+and ``serve.encode`` (the PNG or PPM). Under a profiler the same spans
+are ``user_annotation`` ranges of its trace. The
 render/bench/fit config keys are the CLI's flags (cli.py), with the JAX
 package's defaults; keys the server does not know are ignored; an unknown
 scene or mode returns an error instead of killing the server. Besides the
@@ -45,6 +57,8 @@ import time
 import traceback
 
 import torch
+
+from .utils import timing
 
 # Wire-protocol version: bumped on any incompatible request/response
 # change. Clients may send {"proto": N} with any request -- a mismatch is
@@ -103,8 +117,28 @@ def _render_once(req, device):
     return img, cfg
 
 
+_last_response_ns = None  # time.perf_counter_ns at the previous response
+
+
 def handle_request(req, device) -> dict:
-    """Dispatch one request dict -> response dict (never raises)."""
+    """Dispatch one request dict -> response dict (never raises), spanned
+    as ``rtw.serve.request``; a render's response gains ``spans``."""
+    global _last_response_ns
+    start = time.perf_counter_ns()
+    with timing.collect() as table, timing.span("rtw.serve.request"):
+        if _last_response_ns is not None:
+            timing.record("rtw.serve.idle", _last_response_ns, start)
+        resp = _dispatch(req, device)
+    if resp.get("ok") and isinstance(req, dict) and (
+            req.get("cmd") == "render"):
+        resp["spans"] = {name.removeprefix("rtw."): sec
+                         for name, sec in table.seconds().items()}
+    _last_response_ns = time.perf_counter_ns()
+    return resp
+
+
+def _dispatch(req, device) -> dict:
+    """The request's command -> its response (errors become one)."""
     try:
         proto = req.get("proto", PROTO_VERSION)
         if proto != PROTO_VERSION:
@@ -119,12 +153,12 @@ def handle_request(req, device) -> dict:
             return {"ok": True, "shutdown": True}
         if cmd == "render":
             from . import kernels
-            from .utils.timing import _sync
 
             before = dict(kernels.LAUNCHES)
             t0 = time.perf_counter()
             img, cfg = _render_once(req, device)
-            _sync(device)
+            with timing.span("rtw.serve.sync"):
+                timing._sync(device)
             dt = time.perf_counter() - t0
             launches = kernels.launch_delta(before, kernels.LAUNCHES)
             out = req.get("out")
@@ -132,8 +166,11 @@ def handle_request(req, device) -> dict:
                 from .io.image import write_png, write_ppm
                 from .ops.postprocess import to_u8
 
-                u8 = to_u8(img, clamp=cfg["clamp"]).cpu().numpy()
-                (write_png if out.endswith(".png") else write_ppm)(out, u8)
+                with timing.span("rtw.serve.to_host"):
+                    u8 = to_u8(img, clamp=cfg["clamp"]).cpu().numpy()
+                writer = write_png if out.endswith(".png") else write_ppm
+                with timing.span("rtw.serve.encode"):
+                    writer(out, u8)
             rays = cfg["width"] * cfg["height"] * cfg["spp"]
             # launches: the kernels this render launched, by kernel
             resp = {"ok": True, "seconds": dt, "rays_per_s": rays / dt,
@@ -142,12 +179,10 @@ def handle_request(req, device) -> dict:
                 resp["memory_reserved"] = torch.cuda.memory_reserved(device)
             return resp
         if cmd == "bench":
-            from .utils.timing import time_fn
-
             cfg = _config(req, _DEFAULTS)
-            secs, _ = time_fn(lambda: _render_once(req, device)[0],
-                              warmup=1, iters=int(cfg["iters"]),
-                              device=device)
+            secs, _ = timing.time_fn(lambda: _render_once(req, device)[0],
+                                     warmup=1, iters=int(cfg["iters"]),
+                                     device=device)
             rays = cfg["width"] * cfg["height"] * cfg["spp"]
             return {"ok": True, "seconds_per_frame": secs,
                     "rays_per_s": rays / secs}

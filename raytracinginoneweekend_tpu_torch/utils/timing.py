@@ -1,9 +1,45 @@
 """Throughput metering: wall time around synchronised device work, CUDA
-events for kernel times, and profiler traces.
+events for kernel times, profiler traces, and the program's own spans.
 
 PyTorch returns from a CUDA call before the device has finished, so every
 timed region ends in ``torch.cuda.synchronize()`` (host clock) or is
 bracketed by CUDA events (device clock).
+
+Spans (``span``) are recorded only while a profiler records or a
+``collect()`` table is open; otherwise each call is one flag check. A span
+is stored as ``Span(name, start_ns, end_ns)`` on the host's
+``time.perf_counter_ns`` clock; while a profiler records it is also a
+``record_function`` range, a ``user_annotation`` event on the trace's own
+timeline, so it names the device's idle gaps that open inside it.
+``profiled()`` is the table of the latest profiler session; ``collect()``
+opens one for a stretch of code. A count is the number of a name's spans.
+The host's clock measures what the host did: a span around asynchronous
+device work ends when the work is enqueued, unless it ends in a read or a
+synchronise.
+
+Spans (host seconds):
+
+  rtw.wavefront.build    ops/wavefront: build_engine and FrameRun's
+                         ledger and prologue (per frame, per worker)
+  rtw.wavefront.capture  FrameRun.epoch: capture_epoch, the epoch's CUDA
+                         graph (per frame, on the card)
+  rtw.wavefront.read     FrameRun.more: the pending flag's read to the
+                         host, which waits for the epoch (once an epoch)
+  rtw.wavefront.fold     FrameRun.framebuffer: fold_ledger (enqueue)
+  rtw.ad.epoch           ops/wavefront_ad: a run of the AD pool's
+                         iterations as the forward runs it (an epoch; in
+                         flat mode an iteration)
+  rtw.ad.recompute       the same run when the backward recomputes it
+  rtw.ad.shade           inside either, each iteration's shade step (the
+                         bounce and the deposit)
+  rtw.render.scene       cli._render_image: the scene and camera build
+  rtw.serve.request      serve.handle_request: one request
+  rtw.serve.idle         the server's time from its previous response to
+                         this request (recorded after the fact: in the
+                         table, not on the trace)
+  rtw.serve.sync         the synchronise that ends a render
+  rtw.serve.to_host      to_u8 and the copy of the image to the host
+  rtw.serve.encode       write_png / write_ppm
 """
 
 from __future__ import annotations
@@ -11,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -101,3 +138,137 @@ def profile_trace(log_dir: str, device=None):
         prof.stop()
         prof.export_chrome_trace(os.path.join(
             log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int  # time.perf_counter_ns
+    end_ns: int
+
+
+class Table:
+    """The spans of one stretch of code."""
+
+    def __init__(self):
+        self.spans: list[Span] = []
+
+    def seconds(self) -> dict:
+        """{span name: seconds, summed over its spans}."""
+        out = {}
+        for s in self.spans:
+            out[s.name] = out.get(s.name, 0.0) + (s.end_ns - s.start_ns) * 1e-9
+        return out
+
+
+_profiling = torch._C._autograd._profiler_enabled
+_session = Table()             # the latest profiler session's
+_collecting: list[Table] = []  # the collect() tables open
+_hooked = False
+
+
+def _new_session() -> None:
+    global _session
+    _session = Table()
+
+
+def _hook_sessions() -> None:
+    """Start a new session table whenever a profiler starts: torch calls
+    ``torch.autograd.profiler._run_on_profiler_start`` then. The hook is
+    torch's own, not a public one, so a torch without it is refused rather
+    than left to add its sessions together. Installed at the first span
+    recorded; a profiler already running then is a new session too."""
+    global _hooked
+    import torch.autograd.profiler as ap
+
+    start = getattr(ap, "_run_on_profiler_start", None)
+    if start is None:
+        raise RuntimeError(
+            "torch.autograd.profiler._run_on_profiler_start is missing: "
+            "the spans of one profiler session cannot be told apart from "
+            "the next's")
+
+    def run_on_profiler_start():
+        _new_session()
+        start()
+
+    ap._run_on_profiler_start = run_on_profiler_start
+    _hooked = True
+    if _profiling():
+        _new_session()
+
+
+def _tables(profiling: bool) -> list:
+    """The tables a span that starts now goes to."""
+    if not _hooked:
+        _hook_sessions()
+    return _collecting + [_session] if profiling else list(_collecting)
+
+
+_OFF = contextlib.nullcontext()
+
+
+class _Recording:
+    __slots__ = ("name", "tables", "mark", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        profiling = _profiling()
+        self.tables = _tables(profiling)
+        self.mark = None
+        if profiling:
+            self.mark = torch.profiler.record_function(self.name)
+            self.mark.__enter__()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        if self.mark is not None:
+            self.mark.__exit__(*exc)
+        rec = Span(self.name, self.t0, t1)
+        for t in self.tables:
+            t.spans.append(rec)
+        return False
+
+
+def span(name: str):
+    """A context manager that records the body as the span ``name`` (module
+    docstring); one flag check when nothing records."""
+    if not _collecting and not _profiling():
+        return _OFF
+    return _Recording(name)
+
+
+def record(name: str, start_ns: int, end_ns: int) -> None:
+    """Store a span that has already ended (``time.perf_counter_ns``
+    readings): in the tables only, as a profiler's trace cannot be written
+    in the past."""
+    profiling = _profiling()
+    if not (_collecting or profiling):
+        return
+    rec = Span(name, start_ns, end_ns)
+    for t in _tables(profiling):
+        t.spans.append(rec)
+
+
+@contextlib.contextmanager
+def collect():
+    """Record every span that starts inside the body into a new Table,
+    whether or not a profiler records; yields the table. The table is the
+    process's, not the thread's: it also takes the spans of other threads
+    meanwhile, such as the autograd engine's device thread, which runs a
+    CUDA backward's recompute (``rtw.ad.recompute``)."""
+    table = Table()
+    _collecting.append(table)
+    try:
+        yield table
+    finally:
+        _collecting.remove(table)
+
+
+def profiled() -> Table:
+    """The spans of the latest profiler session (empty before the
+    first)."""
+    return _session

@@ -36,6 +36,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = 120  # seconds a request may take here, at most
 SMALL = {"scene": "simple-cuda", "width": 48, "height": 27, "spp": 4,
          "depth": 4}
+TINY = {"scene": "simple-cuda", "width": 16, "height": 9, "spp": 2,
+        "depth": 3}
 
 
 def _flags(cfg):
@@ -78,6 +80,21 @@ def server():
             proc.kill()
             proc.wait()
         log.close()
+
+
+def test_render_response_carries_its_spans(server, tmp_path):
+    out = str(tmp_path / "s.ppm")
+    t0 = time.perf_counter()
+    resp = serve.request(server, dict(cmd="render", out=out, **TINY),
+                         timeout=T)
+    wall = time.perf_counter() - t0
+    assert resp["ok"], resp
+    spans = resp["spans"]
+    assert spans["serve.to_host"] >= 0 and spans["serve.encode"] >= 0
+    assert (spans["serve.to_host"] + spans["serve.encode"]
+            <= spans["serve.request"] <= wall)
+    assert {"serve.idle", "serve.sync", "render.scene", "wavefront.build",
+            "wavefront.read", "wavefront.fold"} <= set(spans)
 
 
 def test_socket_owner_only(server):
@@ -361,3 +378,16 @@ def test_render_profile_writes_a_trace(tmp_path, capsys):
     trace = json.load(open(prof / files[0]))
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any(n.startswith("aten::") for n in names)
+
+
+def test_render_profile_trace_holds_the_programs_spans(tmp_path, capsys):
+    prof = tmp_path / "prof"
+    assert pcli.main(["render", *_flags(TINY), "--device", "cpu",
+                      "--profile", str(prof), "--out",
+                      str(tmp_path / "p.ppm")]) == 0
+    (name,) = os.listdir(prof)
+    with open(prof / name) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"rtw.render.scene", "rtw.wavefront.build", "rtw.wavefront.read",
+            "rtw.wavefront.fold"} <= names
