@@ -525,6 +525,15 @@ SR_FLOPS_PER_LANE = 400
 SR_SHADE_FLOPS_PER_LANE = 250
 SR_REGEN_FLOPS_PER_LANE = 150
 
+# The AD pool's shade op (csrc/ad_shade.cu): float operations per lane, a
+# generous count as for kernel 2 (the draws' integer hashing is not in the
+# float peak's table, and the bound is the bytes anyway): the forward's
+# shade with its draws; the adjoint's recomputed forward and its reverse
+# sweep.
+AS_FLOPS_PER_LANE = 250
+AS_GRAD_FLOPS_PER_LANE = 500
+AS_ENTRIES = ("ad_shade", "ad_shade_grad")
+
 # intersect: float operations per ray and sphere (3 sub, 5 for b, 6 for c,
 # 3 for the discriminant, 1 compare + 1 select under the sqrt, sqrt, negate,
 # 2 roots, 2 products with 1/a, 2 window compares + 2 ands + 2 selects,
@@ -1114,6 +1123,13 @@ def kernels_phase(rt, torch, nvidia_smi: str):
         worst["max_abs_err"] = max(worst["max_abs_err"], res["max_abs_err"])
 
     ch["train_shape"] = closest_hit_train_shape(rt, torch)
+    ad = {"default": ad_shade_entries(rt, torch, rt.DEFAULT),
+          "stratified_rr": ad_shade_entries(rt, torch, strat_rr,
+                                            timed=False)}
+    for arm, res in ad.items():
+        for entry in AS_ENTRIES:
+            require(res[entry]["ok"], f"{entry} disagrees with its plain "
+                    f"version on a pool state ({arm}): {res[entry]}")
     main_pool = 1 << 15
     line = [
         {"name": "closest_hit", "route": "cuda",
@@ -1170,6 +1186,20 @@ def kernels_phase(rt, torch, nvidia_smi: str):
                                 launch_sweep_ms=sr[1 << 20]["sweep_ms"],
                                 pdl=sr[1 << 20]["pdl"]))
         line.append(k)
+    for entry in AS_ENTRIES:
+        arms = [ad[a][entry] for a in ad]
+        line.append(
+            {"name": entry, "route": "cuda",
+             "source": "raytracinginoneweekend_tpu_torch/csrc/ad_shade.cu",
+             # no TPU kernel: the JAX package leaves this step to XLA
+             "replaces": None, "launches": None,
+             "max_abs_err": max(r["max_abs_err"] for r in arms),
+             "max_err_share_of_scale": max(r["max_err_share_of_scale"]
+                                           for r in arms),
+             "int_mismatch_lanes": sum(r["int_mismatch"] for r in arms),
+             "outliers": sum(r["outliers"] for r in arms),
+             **{key: ad["default"][entry][key] for key in SR_TIMES},
+             "library_ms": None, "lanes": ad["default"]["lanes"]})
     ix = intersect_checks(rt, torch)
     big, small = ix["rays_960000"], ix["rays_131072"]
     line.append(
@@ -1200,7 +1230,7 @@ def kernels_phase(rt, torch, nvidia_smi: str):
     line += coherent_kernel_lines(lst, srt, mxu)
     emit({"phase": "kernels", "card": nvidia_smi, "closest_hit": ch,
           "shade_regen": sr, "shade_regen_stepped": stepped,
-          "intersect": ix, "closest_hit_list": lst,
+          "intersect": ix, "ad_shade": ad, "closest_hit_list": lst,
           "closest_hit_sorted": srt, "closest_hit_mxu": mxu})
     return line
 
@@ -1410,6 +1440,130 @@ def sorted_sweep(torch, rays, geom, t_min, act, sortstate, rows, table):
     out["picked"] = seg.closest_hit_split(
         rays[0].numel(), torch.cuda.get_device_properties(
             rays[0].device).multi_processor_count, seg.SPLIT_THREADS_PER_SM)
+    return out
+
+
+def ad_shade_entries(rt, torch, options, timed: bool = True) -> dict:
+    """The AD pool's shade op on a real pool state: the inputs of every
+    forward launch of one pool render of the training batch (16384 pixels
+    x 8 spp, depth AD_DEPTH, the pool's 32768 lanes) are recorded, and on
+    the fifth (every lane busy: depths 0-4, hits, misses and fresh rays;
+    later launches run the tail of long paths on a few lanes) the forward
+    kernel is held against the plain version (integers equal; floats
+    within rtol 1e-5 / atol 1e-6, no exception) and the adjoint kernel against autograd through it for one random weighting
+    of the outputs (every gradient finite and within rtol 1e-4 / atol 1e-5
+    of its largest |value|, no exception). With ``timed``: each kernel's
+    ``ms`` (device), ``call_ms``, ``plain_ms`` (the plain forward;
+    autograd's backward through it) and bound."""
+    from raytracinginoneweekend_tpu_torch import cli
+    from raytracinginoneweekend_tpu_torch.ops import cuda_ad_shade as cas
+    from raytracinginoneweekend_tpu_torch.ops import wavefront_ad
+    from raytracinginoneweekend_tpu_torch.optim import inverse
+
+    dev = torch.device("cuda")
+    w, h = TRAIN["width"], TRAIN["height"]
+    scene = cli._build_scene("huge", 0, dev)
+    cam = cli._build_camera("cpu", w, h, dev)
+    batch_key, render_key = inverse.step_keys(rt.key_words(7), 0)
+    ids = inverse.draw_pixel_batch(batch_key, w * h, TRAIN["batch_pixels"],
+                                   dev)
+    with recorded_calls(cas, "ad_shade_cuda") as calls, torch.no_grad():
+        wavefront_ad.render_pixels_wavefront_ad_impl(
+            scene, cam, ids, render_key, width=w, height=h,
+            spp=TRAIN["spp"], max_depth=AD_DEPTH, camera_mode="thinlens",
+            options=options)
+    torch.cuda.synchronize()
+    n_calls, pick = len(calls), min(4, len(calls) - 1)
+    args = calls[pick][0]
+    del calls
+    (table, t, planes, sb, hit_i, active, depth, wcur, k0, k1, strat0,
+     spec) = args
+    state = (None, wcur, active, *planes, depth, k0, k1)
+    lanes = t.numel()
+    out = {"lanes": lanes, "calls": n_calls, "call_picked": pick,
+           "active": int(active.sum()), "hit": int((hit_i > 0).sum()),
+           "depth_max": int(depth.max())}
+
+    got = cas.ad_shade_cuda(*args)
+    nxt, deposit, cell = cas.ad_shade_reference(table, state, (t, sb, hit_i),
+                                                strat0, spec)
+    want = (*nxt[3:12], nxt[2], nxt[12], deposit, cell)
+    torch.cuda.synchronize()
+    flt = [(got[i], want[i]) for i in (*range(9), 11)]
+    fwd = {"int_mismatch": sum(int((got[i] != want[i]).sum())
+                               for i in (9, 10, 12)),
+           "float_bits_unequal": sum(
+               int((a.view(torch.int32) != b.view(torch.int32)).sum())
+               for a, b in flt),
+           "outliers": sum(int((~torch.isclose(a, b, rtol=1e-5, atol=1e-6,
+                                               equal_nan=True)).sum())
+                           for a, b in flt),
+           "max_abs_err": max(float((a - b).abs().nan_to_num().max())
+                              for a, b in flt)}
+    fwd["max_err_share_of_scale"] = max(
+        float((a - b).abs().nan_to_num().max())
+        / max(float(b.abs().nan_to_num().max()), 1e-30) for a, b in flt)
+    fwd["ok"] = fwd["int_mismatch"] == 0 and fwd["outliers"] == 0
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g_out = [torch.randn(t.shape, generator=gen, device=dev)
+             for _ in range(9)]
+    g_out.append(torch.randn((3, lanes), generator=gen, device=dev))
+    leaves = [table.clone().requires_grad_(True),
+              t.clone().requires_grad_(True),
+              *(p.clone().requires_grad_(True) for p in planes)]
+    lnxt, ldep, _ = cas.ad_shade_reference(
+        leaves[0], (None, wcur, active, *leaves[2:], depth, k0, k1),
+        (leaves[1], sb, hit_i), strat0, spec)
+    outs = [*lnxt[3:12], ldep]
+    plain_adj = torch.autograd.grad(outs, leaves, g_out, retain_graph=True)
+    g_args = (table, t, planes, sb, hit_i, active, depth, k0, k1, strat0,
+              g_out[:9], g_out[9], spec)
+    g_planes, g_t, rows = cas.ad_shade_grad_cuda(*g_args)
+    g_table = torch.zeros_like(table).index_add_(
+        0, sb.reshape(-1).to(torch.int64), rows)
+    torch.cuda.synchronize()
+    adj = {"int_mismatch": 0, "outliers": 0, "non_finite": 0,
+           "max_abs_err": 0.0, "max_err_share_of_scale": 0.0}
+    for a, b in zip([g_table, g_t, *g_planes], plain_adj):
+        fin = torch.isfinite(b)
+        scale = float(b[fin].abs().max()) if bool(fin.any()) else 0.0
+        err = float((a - b)[fin].abs().max()) if bool(fin.any()) else 0.0
+        adj["non_finite"] += int((~torch.isfinite(a)).sum())
+        adj["outliers"] += int((fin & ~torch.isclose(
+            a, b, rtol=1e-4, atol=1e-5 * scale)).sum())
+        adj["max_abs_err"] = max(adj["max_abs_err"], err)
+        adj["max_err_share_of_scale"] = max(adj["max_err_share_of_scale"],
+                                            err / max(scale, 1e-30))
+    adj["ok"] = adj["outliers"] == 0 and adj["non_finite"] == 0
+    out.update(ad_shade=fwd, ad_shade_grad=adj)
+    if not timed:
+        return out
+
+    def nbytes(tensors) -> int:
+        return sum(x.numel() * x.element_size() for x in tensors
+                   if x is not None)
+
+    # bytes that must move: each kernel's planes in and out once, and the
+    # table once (its rows are read by index and stay in cache)
+    ins = [*planes, t, sb, hit_i, active, depth, k0, k1, *(strat0 or ())]
+    runs = {
+        "ad_shade": (lambda: cas.ad_shade_cuda(*args),
+                     lambda: cas.ad_shade_reference(
+                         table, state, (t, sb, hit_i), strat0, spec),
+                     AS_FLOPS_PER_LANE,
+                     nbytes([*ins, wcur, *got, table])),
+        "ad_shade_grad": (lambda: cas.ad_shade_grad_cuda(*g_args),
+                          lambda: torch.autograd.grad(
+                              outs, leaves, g_out, retain_graph=True),
+                          AS_GRAD_FLOPS_PER_LANE,
+                          nbytes([*ins, *g_out, *g_planes, g_t, rows,
+                                  table]))}
+    for name, (run, plain, flops, moved) in runs.items():
+        res = out[name]
+        res.update(times(run, plain))
+        res.update(bound(lanes * flops, moved), bytes=moved)
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
     return out
 
 
@@ -4013,9 +4167,9 @@ def train_path_phase(rt, torch, nvidia_smi: str):
                     f"{draws}"))
     for cond, what in pending:
         require(cond, what)
-    train_pool_path(rt, torch, nvidia_smi, scene, perturbed, cam, which,
-                    options)
-    return launches
+    pool = train_pool_path(rt, torch, nvidia_smi, scene, perturbed, cam,
+                           which, options)
+    return {"planar": launches, "pool": pool}
 
 
 def full_width_draws(torch, inverse, golden, fit_ids, n_pixels: int) -> dict:
@@ -4105,7 +4259,7 @@ def step_apart(torch, optim, inverse, params, scene, cam, tb, ids, key,
                engine, **kw):
     """One train step taken apart (the second of two passes is timed):
     forward, backward and update seconds, the loss, and the closest-hit
-    launches of the timed pass."""
+    launches of the timed pass (and every kernel's, ``launches``)."""
     from raytracinginoneweekend_tpu_torch import kernels
 
     p = {k: v.detach().clone().requires_grad_(True)
@@ -4134,7 +4288,8 @@ def step_apart(torch, optim, inverse, params, scene, cam, tb, ids, key,
     return {"forward_s": t1 - t0, "backward_s": t2 - t1, "adam_s": t3 - t2,
             "step_s": t3 - t0, "loss_at_params": losses[0],
             "closest_hit_launches_at_params": launches[0],
-            "closest_hit_launches": launches[1]}
+            "closest_hit_launches": launches[1],
+            "launches": dict(kernels.LAUNCHES)}
 
 
 def train_pool_path(rt, torch, nvidia_smi, scene, perturbed, cam, which,
@@ -4231,9 +4386,17 @@ def train_pool_path(rt, torch, nvidia_smi, scene, perturbed, cam, which,
           "grad_pool_vs_planar": diff, "grad_pixels": px})
     require(all(x == x and abs(x) != float("inf") for x in losses),
             f"non-finite loss: {losses}")
-    require(launches["closest_hit"] > 0
-            and sum(launches.values()) == launches["closest_hit"],
+    # an iteration launches the closest hit once, the shade op's forward
+    # as the forward runs it and again as the backward recomputes it, and
+    # its adjoint once; nothing else
+    n_iter = launches["closest_hit"]
+    require(n_iter > 0 and launches["ad_shade"] == 2 * n_iter
+            and launches["ad_shade_grad"] == n_iter
+            and sum(launches.values()) == 4 * n_iter,
             f"the pool's steps launched {launches}")
+    require(parts["planar"]["launches"]["ad_shade"] == 0,
+            f"the planar engine's step ran the pool's shade op: "
+            f"{parts['planar']['launches']}")
     n_first = parts["wavefront"]["closest_hit_launches_at_params"]
     require(n_first == budget and done,
             f"one pool step launched closest_hit {n_first} times; the batch "
@@ -4249,6 +4412,7 @@ def train_pool_path(rt, torch, nvidia_smi, scene, perturbed, cam, which,
     for k in which:
         require(engine_gradients_agree(k, diff[k]),
                 f"gradient of {k}, pool vs planar: {diff[k]}")
+    return launches
 
 
 def cli_fit_phase(rt, torch, nvidia_smi: str):
@@ -6199,7 +6363,7 @@ def main(argv=None) -> int:
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    line, launches, train_launches = (out.get(k) for k in (
+    line, launches, train = (out.get(k) for k in (
         "kernels", "main_path", "train_path"))
     coherent_launches = out.get("coherent_path")
 
@@ -6207,29 +6371,34 @@ def main(argv=None) -> int:
         print(f"chip_smoke: ran only {phases}; no verdict", file=sys.stderr)
         return 5
     line += [out["grouped_path"], out["mega_path"]]
+    train_launches, pool_launches = train["planar"], train["pool"]
     for k in line:
         # each kernel's count on the path that runs it: the forward render
         # for closest_hit, shade_regen and regen_only (its prologue), the
         # coherent engines' full-width frames for the list, sorted and mxu
         # kernels and shade_only (--fusion off), the training path
         # for intersect (and closest_hit again, under autograd), the
-        # grouped path's three trace_segment(group_params=...) calls, and
-        # the full-width --fusion bounce frame for mega_bounce (both set by
-        # their phases)
+        # grouped path's three trace_segment(group_params=...) calls, the
+        # full-width --fusion bounce frame for mega_bounce (both set by
+        # their phases), and the AD pool's fit steps at depth AD_DEPTH for
+        # the pool's shade op
         name = k["name"]
-        if name in ("closest_hit_list", "closest_hit_sorted",
-                    "closest_hit_mxu", "shade_only"):
+        if name in AS_ENTRIES:
+            k["launches"] = pool_launches[name]
+        elif name in ("closest_hit_list", "closest_hit_sorted",
+                      "closest_hit_mxu", "shade_only"):
             k["launches"] = coherent_launches[name]
         elif name not in ("closest_hit_grouped", "mega_bounce"):
             k["launches"] = (train_launches if name == "intersect"
                              else launches)[name]
         k["launches_train_path"] = train_launches[name]
+        k["launches_pool_path"] = pool_launches[name]
         if name in ("closest_hit", "shade_regen", "regen_only"):
             # the frame past the ledger cap (its own main path)
             k["launches_scatter_path"] = out["scatter_path"][name]
-        if name in ("intersect", "closest_hit"):
+        if name in ("intersect", "closest_hit", *AS_ENTRIES):
             # the full-surrogate step: kernel 3 in the probe traces and
-            # attached hops, kernel 1 in the AD pool
+            # attached hops, kernel 1 and the shade op in the AD pool
             k["launches_surrogate_path"] = out["surrogate_path"][name]
         if name == "closest_hit":
             # the full-width render --adaptive (the planar engine)

@@ -15,7 +15,8 @@ versions whose products and sums are rounded separately.
 
 Each C entry returns ``cudaGetLastError()`` after its launch; ``check``
 raises when that is not 0. The wrappers (ops/cuda_segment.py,
-ops/cuda_fused.py, ops/cuda_intersect.py, ops/cuda_mega.py) own the launch
+ops/cuda_fused.py, ops/cuda_intersect.py, ops/cuda_mega.py,
+ops/cuda_ad_shade.py) own the launch
 counters; ``LAUNCHES`` here is the one table they count into, so a caller
 can zero and read all of them (``launch_delta`` and ``add_launches`` keep
 it true across CUDA graph replays, ops/wavefront.capture_epoch).
@@ -89,16 +90,23 @@ ENTRIES = {
     "rtw_closest_hit_grouped": ("closest_hit_grouped.cu",
                                 [_P] * 7 + [_P] * 2 + [_P] * 3 + [_P]
                                 + [_I, _I, _F, _I, _P]),
+    # config struct | input ptrs | output ptrs | table | stream
+    "rtw_ad_shade": ("ad_shade.cu", [_P] * 5),
+    # config struct | input ptrs | gradient in ptrs | gradient out ptrs
+    # | table | stream
+    "rtw_ad_shade_grad": ("ad_shade.cu", [_P] * 6),
 }
 
 # Launch counts, one per kernel entry; each wrapper adds one where it
 # launches. shade_regen's three entries (ops/cuda_fused.py) count apart:
-# "shade_regen" the fused one, "shade_only" and "regen_only".
+# "shade_regen" the fused one, "shade_only" and "regen_only"; the AD
+# pool's shade op (ops/cuda_ad_shade.py) "ad_shade" forward and
+# "ad_shade_grad" backward.
 LAUNCHES = {"closest_hit": 0, "shade_regen": 0, "shade_only": 0,
             "regen_only": 0, "intersect": 0,
             "closest_hit_list": 0, "closest_hit_sorted": 0,
             "closest_hit_mxu": 0, "mega_bounce": 0,
-            "closest_hit_grouped": 0}
+            "closest_hit_grouped": 0, "ad_shade": 0, "ad_shade_grad": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict = {}

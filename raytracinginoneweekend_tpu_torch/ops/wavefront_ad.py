@@ -30,13 +30,18 @@ iteration, and the whole loop is differentiable.
     the same value.
   * The closest hit is ops/integrate_planar.closest_hit_planar: the
     hand-written kernel (csrc/closest_hit.cu) under a
-    ``torch.autograd.Function``. The winner's sphere/material parameters
-    are ONE ``index_select`` of the differentiable (S, 10) table (backward
-    ``index_add_``), as in the planar engine. The scatter and sky math is
-    the planar engine's (scatter_planar_ad, shade_geometry_planar) and the
-    per-pixel mean reduces in the same sample order, so pixels are
-    BIT-invariant to pool_size and agree with render_pixels_planar to
-    float32 reassociation.
+    ``torch.autograd.Function``. The rest of the bounce -- the winner's
+    parameters from the differentiable (S, 10) table, the scatter and sky
+    math of the planar engine (scatter_planar_ad, shade_geometry_planar),
+    the deposit's values and cells -- is ONE op,
+    ops/cuda_ad_shade.ad_shade: a kernel forward and its adjoint kernel
+    backward on the card (csrc/ad_shade.cu), the plain version under
+    autograd on the CPU; on the card its table gradient sums each lane's
+    row by sphere with ``index_add_``, as ``index_select``'s backward
+    does. The per-pixel
+    mean reduces in the same sample order, so pixels are BIT-invariant to
+    pool_size and agree with render_pixels_planar to float32
+    reassociation.
   * Iterations run in EPOCHS of ``epoch_len`` under
     ``torch.utils.checkpoint`` (non-reentrant): backward memory is
     O(state * epochs) plus the kernel's three output planes per iteration,
@@ -67,11 +72,8 @@ from ..config import TraceOptions
 from ..models.camera import Camera
 from ..models.scene import Scene
 from ..utils.timing import span
-from . import planar, rng
-from .integrate_planar import (_material_table, _pick_rows,
-                               closest_hit_planar, scatter_planar_ad,
-                               shade_geometry_planar)
-from .planar import SKY_BLUE, SKY_WHITE
+from . import cuda_ad_shade, planar
+from .integrate_planar import _material_table, _pick_rows, closest_hit_planar
 
 LANES = 128
 
@@ -175,84 +177,16 @@ def _shade_deposit(table, options: TraceOptions, max_depth: int, state,
     table: ``_material_table(scene)``; ledger: (3, W*L + L) f32, the wave
     cells then one dump cell per lane. strat0: the first-bounce scatter
     vectors of this iteration's ``_regen`` (valid on the depth == 0
-    lanes), substituted there under sampling="stratified".
+    lanes), substituted there under sampling="stratified". The bounce is
+    one op (ops/cuda_ad_shade.ad_shade: one kernel forward, one backward
+    on the card); the ledger write stays out of place, as the checkpoint
+    needs.
     """
-    (nxtw, wcur, active, ox, oy, oz, dx, dy, dz, ax, ay, az, depth,
-     k0, k1) = state
-    shape = ox.shape
-    lanes = ox.numel()
-
-    t, sb, hit_i = khit
-    params = table.index_select(0, sb.reshape(-1).to(torch.int64))
-
-    def col(i):
-        return params[:, i].reshape(shape)
-
-    mt = col(4).to(torch.int32)
-    alr, alg, alb_ = col(5), col(6), col(7)
-    fz, io = col(8), col(9)
-
-    hit, px, py, pz, nx, ny, nz = shade_geometry_planar(
-        (ox, oy, oz, dx, dy, dz), khit, (col(0), col(1), col(2), col(3)))
-
-    # Per-bounce randomness: per-LANE depth plane (tasks sit at mixed
-    # depths), same (pixel, sample, bounce) contract as every engine.
-    rvx, rvy, rvz, ru = planar.bounce_draws(
-        k0, k1, depth, options.scatter_sample == "unit")
-    if strat0 is not None:
-        svx, svy, svz = strat0
-        m0 = depth == 0
-        rvx = torch.where(m0, svx, rvx)
-        rvy = torch.where(m0, svy, rvy)
-        rvz = torch.where(m0, svz, rvz)
-
-    ndx, ndy, ndz, valid, uy = scatter_planar_ad(
-        (dx, dy, dz), (nx, ny, nz), (mt, fz, io), (rvx, rvy, rvz, ru),
-        options)
-
-    miss_now = active & ~hit
-    scatter_now = active & hit & valid
-    keep = scatter_now & (depth + 1 < max_depth)
-
-    # sky (cuda_impl.cu:123-126 / main.cxx:47-50), unclamped mix
-    sky_bias = 0.5 if options.sky == "cuda" else 1.0
-    tsky = 0.5 * uy + sky_bias
-    miss_f = miss_now.to(torch.float32)
-    cr = miss_f * ax * (SKY_WHITE[0] * (1.0 - tsky) + SKY_BLUE[0] * tsky)
-    cg = miss_f * ay * (SKY_WHITE[1] * (1.0 - tsky) + SKY_BLUE[1] * tsky)
-    cb = miss_f * az * (SKY_WHITE[2] * (1.0 - tsky) + SKY_BLUE[2] * tsky)
-
-    # Wave-indexed deposit: ray (wcur, lane) writes its unique cell; the
-    # other lanes write a zero into their own dump cell.
-    lane = torch.arange(lanes, dtype=torch.int64, device=ox.device)
-    w_cells = ledger.shape[1] - lanes
-    cell = torch.where(miss_now.reshape(-1),
-                       wcur.reshape(-1).to(torch.int64) * lanes + lane,
-                       w_cells + lane)
-    ledger = torch.index_copy(ledger, 1, cell, torch.stack(
-        [cr.reshape(-1), cg.reshape(-1), cb.reshape(-1)]))
-
-    ox = torch.where(keep, px, ox)
-    oy = torch.where(keep, py, oy)
-    oz = torch.where(keep, pz, oz)
-    dx = torch.where(keep, ndx, dx)
-    dy = torch.where(keep, ndy, dy)
-    dz = torch.where(keep, ndz, dz)
-    ax = torch.where(keep, ax * alr, ax)
-    ay = torch.where(keep, ay * alg, ay)
-    az = torch.where(keep, az * alb_, az)
-    if options.rr_terminate:
-        # RR path termination: the shared contract with the survival
-        # weights held constant (rng.rr_terminate_update). A killed lane
-        # regenerates next iteration, so the saving is real in forward
-        # and backward.
-        ax, ay, az, keep = rng.rr_terminate_update(
-            k0, k1, depth, ax, ay, az, keep, rr_start=options.rr_start,
-            rr_qmin=options.rr_qmin, rr_scale=options.rr_scale)
-    depth = torch.where(keep, depth + 1, depth)
-    state = (nxtw, wcur, keep, ox, oy, oz, dx, dy, dz, ax, ay, az,
-             depth, k0, k1)
-    return state, ledger
+    lanes = state[3].numel()
+    state, deposit, cell = cuda_ad_shade.ad_shade(
+        table, state, khit, strat0,
+        cuda_ad_shade.Spec(max_depth, options, ledger.shape[1] - lanes))
+    return state, torch.index_copy(ledger, 1, cell, deposit)
 
 
 def trace_wavefront_ad(scene: Scene, cam: Camera, pid_waves, sid_waves,

@@ -416,7 +416,8 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch, tmp_path):
     assert kernels.LAUNCHES == dict.fromkeys(
         ("closest_hit", "shade_regen", "shade_only", "regen_only",
          "intersect", "closest_hit_list", "closest_hit_sorted",
-         "closest_hit_mxu", "mega_bounce", "closest_hit_grouped"), 0)
+         "closest_hit_mxu", "mega_bounce", "closest_hit_grouped",
+         "ad_shade", "ad_shade_grad"), 0)
     assert not os.path.exists(os.path.join(kernels.BUILD_DIR, "lock"))
 
 
