@@ -195,7 +195,8 @@ Phases (one JSON object per line on standard output):
                    update, and one step of engine "tiled" on the same
                    batch. Then the same batch shape at depth 50, where
                    "auto" resolves to the regenerative AD pool
-                   (ops/wavefront_ad.py): a fit of ten timed steps, a step
+                   (ops/wavefront_ad.py): a fit of ten timed steps (the
+                   eager regen once a step, never inside an epoch), a step
                    of the pool and of the planar engine taken apart, the
                    batch's iteration budget and a flat-budget step, and the
                    pool's pixels and gradients against the planar engine's.
@@ -528,8 +529,8 @@ SR_REGEN_FLOPS_PER_LANE = 150
 # The AD pool's shade op (csrc/ad_shade.cu): float operations per lane, a
 # generous count as for kernel 2 (the draws' integer hashing is not in the
 # float peak's table, and the bound is the bytes anyway): the forward's
-# shade with its draws; the adjoint's recomputed forward and its reverse
-# sweep.
+# shade with its draws (its regen is selection); the adjoint's recomputed
+# forward and its reverse sweep.
 AS_FLOPS_PER_LANE = 250
 AS_GRAD_FLOPS_PER_LANE = 500
 AS_ENTRIES = ("ad_shade", "ad_shade_grad")
@@ -1444,17 +1445,19 @@ def sorted_sweep(torch, rays, geom, t_min, act, sortstate, rows, table):
 
 
 def ad_shade_entries(rt, torch, options, timed: bool = True) -> dict:
-    """The AD pool's shade op on a real pool state: the inputs of every
-    forward launch of one pool render of the training batch (16384 pixels
-    x 8 spp, depth AD_DEPTH, the pool's 32768 lanes) are recorded, and on
-    the fifth (every lane busy: depths 0-4, hits, misses and fresh rays;
-    later launches run the tail of long paths on a few lanes) the forward
-    kernel is held against the plain version (integers equal; floats
-    within rtol 1e-5 / atol 1e-6, no exception) and the adjoint kernel against autograd through it for one random weighting
-    of the outputs (every gradient finite and within rtol 1e-4 / atol 1e-5
-    of its largest |value|, no exception). With ``timed``: each kernel's
-    ``ms`` (device), ``call_ms``, ``plain_ms`` (the plain forward;
-    autograd's backward through it) and bound."""
+    """The AD pool's shade op (the shade and the regen) on a real pool
+    state: the inputs of every forward launch of one pool render of the
+    training batch (16384 pixels x 8 spp, depth AD_DEPTH, the pool's 32768
+    lanes) are recorded, and on the fifth (every lane busy: depths 0-4,
+    hits, misses and fresh rays; later launches run the tail of long paths
+    on a few lanes) the forward kernel is held against the plain version,
+    ``op_reference`` (integers equal; floats within rtol 1e-5 / atol 1e-6,
+    no exception) and the adjoint kernel against autograd through it for
+    one random weighting of the outputs (every gradient finite and within
+    rtol 1e-4 / atol 1e-5 of its largest |value|, no exception); the
+    lanes that acquire a ray there are counted (``acquiring``). With
+    ``timed``: each kernel's ``ms`` (device), ``call_ms``, ``plain_ms``
+    (the plain forward; autograd's backward through it) and bound."""
     from raytracinginoneweekend_tpu_torch import cli
     from raytracinginoneweekend_tpu_torch.ops import cuda_ad_shade as cas
     from raytracinginoneweekend_tpu_torch.ops import wavefront_ad
@@ -1476,22 +1479,24 @@ def ad_shade_entries(rt, torch, options, timed: bool = True) -> dict:
     n_calls, pick = len(calls), min(4, len(calls) - 1)
     args = calls[pick][0]
     del calls
-    (table, t, planes, sb, hit_i, active, depth, wcur, k0, k1, strat0,
+    (table, t, planes, sb, hit_i, active, depth, nxtw, wcur, k0, k1, rays,
      spec) = args
-    state = (None, wcur, active, *planes, depth, k0, k1)
+    state = (nxtw, wcur, active, *planes, depth, k0, k1)
     lanes = t.numel()
     out = {"lanes": lanes, "calls": n_calls, "call_picked": pick,
            "active": int(active.sum()), "hit": int((hit_i > 0).sum()),
            "depth_max": int(depth.max())}
 
     got = cas.ad_shade_cuda(*args)
-    nxt, deposit, cell = cas.ad_shade_reference(table, state, (t, sb, hit_i),
-                                                strat0, spec)
-    want = (*nxt[3:12], nxt[2], nxt[12], deposit, cell)
+    nxt, deposit, cell, busy = cas.op_reference(table, state,
+                                                (t, sb, hit_i), rays, spec)
+    want = (*nxt[3:12], deposit, nxt[0], nxt[1], nxt[12], nxt[13], nxt[14],
+            nxt[2], busy, cell)
     torch.cuda.synchronize()
-    flt = [(got[i], want[i]) for i in (*range(9), 11)]
+    out["acquiring"] = int((nxt[1] != wcur).sum())
+    flt = [(got[i], want[i]) for i in range(10)]
     fwd = {"int_mismatch": sum(int((got[i] != want[i]).sum())
-                               for i in (9, 10, 12)),
+                               for i in range(10, 18)),
            "float_bits_unequal": sum(
                int((a.view(torch.int32) != b.view(torch.int32)).sum())
                for a, b in flt),
@@ -1512,13 +1517,13 @@ def ad_shade_entries(rt, torch, options, timed: bool = True) -> dict:
     leaves = [table.clone().requires_grad_(True),
               t.clone().requires_grad_(True),
               *(p.clone().requires_grad_(True) for p in planes)]
-    lnxt, ldep, _ = cas.ad_shade_reference(
-        leaves[0], (None, wcur, active, *leaves[2:], depth, k0, k1),
-        (leaves[1], sb, hit_i), strat0, spec)
+    lnxt, ldep, _, _ = cas.op_reference(
+        leaves[0], (nxtw, wcur, active, *leaves[2:], depth, k0, k1),
+        (leaves[1], sb, hit_i), rays, spec)
     outs = [*lnxt[3:12], ldep]
     plain_adj = torch.autograd.grad(outs, leaves, g_out, retain_graph=True)
-    g_args = (table, t, planes, sb, hit_i, active, depth, k0, k1, strat0,
-              g_out[:9], g_out[9], spec)
+    g_args = (table, t, planes, sb, hit_i, active, depth, nxtw, wcur, k0,
+              k1, rays, g_out[:9], g_out[9], spec)
     g_planes, g_t, rows = cas.ad_shade_grad_cuda(*g_args)
     g_table = torch.zeros_like(table).index_add_(
         0, sb.reshape(-1).to(torch.int64), rows)
@@ -1544,21 +1549,27 @@ def ad_shade_entries(rt, torch, options, timed: bool = True) -> dict:
         return sum(x.numel() * x.element_size() for x in tensors
                    if x is not None)
 
-    # bytes that must move: each kernel's planes in and out once, and the
-    # table once (its rows are read by index and stay in cache)
-    ins = [*planes, t, sb, hit_i, active, depth, k0, k1, *(strat0 or ())]
+    # bytes that must move: each kernel's planes in and out once, the
+    # table once (its rows are read by index and stay in cache), and an
+    # acquiring lane's ray (6 floats and 2 key words) and, under
+    # stratified sampling, a depth-0 lane's vector (3 floats) from the ray
+    # tables
+    ins = [*planes, t, sb, hit_i, active, depth, nxtw, wcur, k0, k1]
+    stratified = rays.floats.shape[0] == 9
+    fresh = int(((depth == 0) & active).sum()) if stratified else 0
+    from_tables = 32 * out["acquiring"] + 12 * fresh
     runs = {
         "ad_shade": (lambda: cas.ad_shade_cuda(*args),
-                     lambda: cas.ad_shade_reference(
-                         table, state, (t, sb, hit_i), strat0, spec),
+                     lambda: cas.op_reference(
+                         table, state, (t, sb, hit_i), rays, spec),
                      AS_FLOPS_PER_LANE,
-                     nbytes([*ins, wcur, *got, table])),
+                     nbytes([*ins, *got, table]) + from_tables),
         "ad_shade_grad": (lambda: cas.ad_shade_grad_cuda(*g_args),
                           lambda: torch.autograd.grad(
                               outs, leaves, g_out, retain_graph=True),
                           AS_GRAD_FLOPS_PER_LANE,
                           nbytes([*ins, *g_out, *g_planes, g_t, rows,
-                                  table]))}
+                                  table]) + 12 * fresh)}
     for name, (run, plain, flops, moved) in runs.items():
         res = out[name]
         res.update(times(run, plain))
@@ -4308,6 +4319,7 @@ def train_pool_path(rt, torch, nvidia_smi, scene, perturbed, cam, which,
     import statistics
 
     from raytracinginoneweekend_tpu_torch import kernels, optim
+    from raytracinginoneweekend_tpu_torch.ops import cuda_ad_shade
     from raytracinginoneweekend_tpu_torch.ops import wavefront_ad
     from raytracinginoneweekend_tpu_torch.optim import inverse
 
@@ -4335,12 +4347,15 @@ def train_pool_path(rt, torch, nvidia_smi, scene, perturbed, cam, which,
     kernels.reset_launches()
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
-    _, params, _opt, losses = optim.fit(
-        perturbed, cam, target, cfg, which=which, steps=n_steps,
-        learning_rate=TRAIN["lr"], batch_pixels=TRAIN["batch_pixels"],
-        spp=TRAIN["spp"], engine="auto", callback=callback, device=dev)
+    with recorded_calls(cuda_ad_shade, "regen_reference") as regens:
+        _, params, _opt, losses = optim.fit(
+            perturbed, cam, target, cfg, which=which, steps=n_steps,
+            learning_rate=TRAIN["lr"], batch_pixels=TRAIN["batch_pixels"],
+            spp=TRAIN["spp"], engine="auto", callback=callback, device=dev)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    n_regens = len(regens)
+    del regens
     peak = torch.cuda.max_memory_allocated()
     step_s = [b - a for a, b in zip(stamps, stamps[1:])]
     timed = step_s[TRAIN["warmup_steps"]:]
@@ -4375,6 +4390,7 @@ def train_pool_path(rt, torch, nvidia_smi, scene, perturbed, cam, which,
           **TRAIN, "depth": depth, "which": which,
           "engine": "auto -> " + engine, "pool_lanes": lanes,
           "waves": pid_waves.shape[0], "launches": launches,
+          "eager_regens": n_regens,
           "closest_hit_launches_per_step": launches["closest_hit"] / n_steps,
           "step_seconds": step_s,
           "step_seconds_median": statistics.median(timed),
@@ -4394,6 +4410,10 @@ def train_pool_path(rt, torch, nvidia_smi, scene, perturbed, cam, which,
             and launches["ad_shade_grad"] == n_iter
             and sum(launches.values()) == 4 * n_iter,
             f"the pool's steps launched {launches}")
+    # the eager regen runs once a trace, before its first iteration: never
+    # inside an epoch
+    require(n_regens == n_steps,
+            f"{n_steps} pool steps ran the eager regen {n_regens} times")
     require(parts["planar"]["launches"]["ad_shade"] == 0,
             f"the planar engine's step ran the pool's shade op: "
             f"{parts['planar']['launches']}")

@@ -1,37 +1,46 @@
-// ad_shade: the regenerative AD pool's shade step, forward and adjoint.
+// ad_shade: the regenerative AD pool's shade step and regen, forward and
+// adjoint.
 //
 // Replaces no TPU kernel: the JAX package leaves this step of its
-// ops/wavefront_ad.py to XLA, which fuses it. Plain PyTorch version:
-// ops/cuda_ad_shade.ad_shade_reference (the eager chain); the forward is
-// held against it lane by lane, the adjoint against autograd through it.
+// ops/wavefront_ad.py to XLA, which fuses it. Plain PyTorch versions:
+// ops/cuda_ad_shade.ad_shade_reference (the shade's eager chain) followed
+// by regen_reference (the regen's); the forward is held against the pair
+// lane by lane, the adjoint against autograd through it.
 //
-// One pool iteration's bounce downstream of the closest hit, one thread a
-// lane over the (R, 128) planes:
+// One pool iteration downstream of the closest hit, one thread a lane over
+// the (R, 128) planes:
 //   * ad_shade_kernel: the winner's ten parameters from the (S, 10) table
 //     by the sphere index; the hit point and normal (t and r guarded off
 //     a miss, r = 0 guarded); the bounce draws at the lane's depth, with
-//     the bounce-0 stratified substitution; the scatter of
-//     integrate_planar.scatter_planar_ad (ior = 0 and the root guarded);
-//     the sky; the throughput and Russian roulette; the next state, the
-//     deposit's three values and each lane's ledger cell;
+//     the bounce-0 stratified vector read from the ray table at the lane's
+//     own ray; the scatter of integrate_planar.scatter_planar_ad (ior = 0
+//     and the root guarded); the sky; the throughput and Russian roulette;
+//     the deposit's three values and each lane's ledger cell; then the
+//     regen: a lane left idle takes its next strided ray from the ray
+//     tables (or, its next ray in the last wave's pad, parks), and the
+//     kernel writes the whole next lane state;
 //   * ad_shade_grad_kernel: the same forward values recomputed in
-//     registers from the same inputs, then the reverse sweep: the
+//     registers from the same inputs, the gradients of the nine planes a
+//     lane's acquire overwrote set to zero, then the reverse sweep: the
 //     gradients of the nine float state planes and of t, and one row of
 //     the table's gradient a lane (summed by sphere outside, with
 //     index_add_).
 // Autograd's rules are the contract of the adjoint: a select passes a
 // gradient to the branch it took and nothing to the other (an `if`, so
 // whatever the other branch holds cannot leak); Russian roulette's q is a
-// constant; the material type, draws, depth, keys and masks carry none.
+// constant; the material type, draws, depth, keys, masks and the ray
+// tables carry none.
 //
 // What bounds it: latency. At the pool's 32768 lanes a thread runs two or
 // three threefry blocks of 20 rounds and the shade in one serial chain;
-// the forward moves ~100 bytes a lane and the adjoint ~170, 3-6 MB a
+// the forward moves ~120 bytes a lane and the adjoint ~180, 4-6 MB a
 // launch, about 1-2 us of the card's bandwidth. What the kernels remove is
-// the host's cost: one launch forward and one backward in place of ~620
-// eager ops and ~450 autograd nodes. The design: plane-per-quantity
-// arrays, so a warp's accesses are coalesced; all reads before any write;
-// the table row read by index (a few KB, it stays in cache).
+// the host's cost: one launch forward and one backward in place of the
+// shade's and the regen's eager chains and autograd nodes. The design:
+// plane-per-quantity arrays, so a warp's accesses are coalesced; all reads
+// of the lane's state before any write; the table row read by index (a few
+// KB, it stays in cache); an acquiring lane's ray read from the tables by
+// its ray id, which strided ownership makes consecutive across a warp.
 //
 // Arithmetic: the plain forward's operations in its order, under the
 // package's flags (-fmad=false, no fast math), so the forward's integer
@@ -43,16 +52,23 @@
 #define AS_THREADS 128
 #define AS_TABLE_COLS 10
 #define AS_N_IN 20    // ox oy oz dx dy dz ax ay az t | sb hit active depth
-                      // wcur k0 k1 | svx svy svz (null without)
-#define AS_N_OUT 13   // ox oy oz dx dy dz ax ay az | keep depth | deposit
-                      // (3, L) | cell (L,) int64
+                      // wcur k0 k1 nxtw | the ray tables: floats (6 or 9,
+                      // w_cells: origin, direction[, stratified bounce-0
+                      // vector]) and key words (2, w_cells)
+#define AS_N_OUT 4    // floats (12, L): ox..az, the deposit's r g b | ints
+                      // (5, L): nxtw wcur depth k0 k1 | bools (2, L):
+                      // active, busy | cell (L,) int64
 #define AS_N_GIN 10   // gradients of ox..az | of the deposit (3, L)
-#define AS_N_GOUT 11  // gradients of ox..az | of t | table rows (L, 10)
+#define AS_N_GOUT 2   // gradients (10, L): of ox..az, of t | table rows
+                      // (L, 10)
 
-// Mirrors ops/cuda_ad_shade._Config (ctypes), field for field.
+// Mirrors ops/cuda_ad_shade._Config (ctypes), field for field. The pool
+// holds n_waves waves of n_lanes rays (w_cells = n_waves * n_lanes, the
+// ledger's wave cells and the ray tables' length); n_rays of them are
+// real, the rest of the last wave is pad.
 struct AdShadeConfig {
     int n_lanes, n_spheres, w_cells, max_depth, unit_sample, phys_refract,
-        rr_terminate, rr_start, stratified;
+        rr_terminate, rr_start, stratified, n_rays, n_waves;
     float sky_bias, rr_qmin, rr_scale;
 };
 
@@ -65,7 +81,7 @@ struct AsGout { void* p[AS_N_GOUT]; };
 struct AsLane {
     float ox, oy, oz, dx, dy, dz, ax, ay, az, t;
     float cx, cy, cz, r, alr, alg, alb, fz, io;
-    int dep, mt, s;
+    int dep, mt, s, wcur, nxtw;
     bool hit, active;
     uint32_t k0, k1;
 };
@@ -97,8 +113,10 @@ __device__ __forceinline__ void as_load(const AdShadeConfig& c,
     L.hit = LDI(11) > 0;
     L.active = ((const bool*)in.p[12])[i];
     L.dep = LDI(13);
+    L.wcur = LDI(14);
     L.k0 = ((const uint32_t*)in.p[15])[i];
     L.k1 = ((const uint32_t*)in.p[16])[i];
+    L.nxtw = LDI(17);
 #undef LDF
 #undef LDI
     const float* row = table + (size_t)L.s * AS_TABLE_COLS;
@@ -106,6 +124,22 @@ __device__ __forceinline__ void as_load(const AdShadeConfig& c,
     L.mt = (int)row[4];
     L.alr = row[5]; L.alg = row[6]; L.alb = row[7];
     L.fz = row[8]; L.io = row[9];
+}
+
+// A lane's ray id in the ray tables, clamped into the real rays as
+// regen_reference clamps its gather.
+__device__ __forceinline__ size_t as_ray_at(const AdShadeConfig& c,
+                                            long long ray) {
+    return (size_t)(ray < 0 ? 0 : (ray >= c.n_rays ? c.n_rays - 1 : ray));
+}
+
+// regen_reference's acquire: the lane is idle after the shade, has waves
+// left, and its next ray is not in the last wave's pad.
+__device__ __forceinline__ bool as_acquires(const AdShadeConfig& c,
+                                            const AsLane& L, bool keep,
+                                            int i) {
+    return !keep && L.nxtw < c.n_waves
+           && (long long)L.nxtw * c.n_lanes + i < c.n_rays;
 }
 
 // The forward: ad_shade_reference's operations in its order.
@@ -133,9 +167,12 @@ __device__ __forceinline__ void as_forward(const AdShadeConfig& c,
     rtw_bounce_draws(L.k0, L.k1, L.dep, c.unit_sample != 0, f.rvx, f.rvy,
                      f.rvz, ru);
     if (c.stratified && L.dep == 0) {
-        f.rvx = ((const float*)in.p[17])[i];
-        f.rvy = ((const float*)in.p[18])[i];
-        f.rvz = ((const float*)in.p[19])[i];
+        // a lane at depth 0 traces the ray it acquired, wcur * L + lane
+        const float* rays = (const float*)in.p[18];
+        const size_t at = as_ray_at(c, (long long)L.wcur * c.n_lanes + i);
+        f.rvx = rays[6 * (size_t)c.w_cells + at];
+        f.rvy = rays[7 * (size_t)c.w_cells + at];
+        f.rvz = rays[8 * (size_t)c.w_cells + at];
     }
 
     // integrate_planar.scatter_planar_ad
@@ -239,7 +276,6 @@ ad_shade_kernel(const AdShadeConfig c, const AsIn in, const AsOut out,
     if (i >= c.n_lanes) return;
     AsLane L;
     as_load(c, in, table, i, L);
-    const int wcur = ((const int*)in.p[14])[i];
     AsFwd f;
     as_forward(c, in, i, L, f);
     const float mf = f.miss ? 1.0f : 0.0f;
@@ -250,23 +286,55 @@ ad_shade_kernel(const AdShadeConfig c, const AsIn in, const AsOut out,
     if (c.rr_terminate) {
         ax = ax * f.boost; ay = ay * f.boost; az = az * f.boost;
     }
-#define STF(k, v) (((float*)out.p[k])[i] = (v))
-    STF(0, f.keep0 ? f.px : L.ox);
-    STF(1, f.keep0 ? f.py : L.oy);
-    STF(2, f.keep0 ? f.pz : L.oz);
-    STF(3, f.keep0 ? f.ndx : L.dx);
-    STF(4, f.keep0 ? f.ndy : L.dy);
-    STF(5, f.keep0 ? f.ndz : L.dz);
-    STF(6, ax); STF(7, ay); STF(8, az);
-#undef STF
-    ((bool*)out.p[9])[i] = f.keep;
-    ((int*)out.p[10])[i] = f.keep ? L.dep + 1 : L.dep;
-    float* deposit = (float*)out.p[11];
-    deposit[i] = cr;
-    deposit[c.n_lanes + i] = cg;
-    deposit[2 * c.n_lanes + i] = cb;
-    ((long long*)out.p[12])[i] =
-        f.miss ? (long long)wcur * c.n_lanes + i : (long long)c.w_cells + i;
+    float o[9] = {f.keep0 ? f.px : L.ox, f.keep0 ? f.py : L.oy,
+                  f.keep0 ? f.pz : L.oz, f.keep0 ? f.ndx : L.dx,
+                  f.keep0 ? f.ndy : L.dy, f.keep0 ? f.ndz : L.dz,
+                  ax, ay, az};
+    int nxtw = L.nxtw, wcur = L.wcur, dep = f.keep ? L.dep + 1 : L.dep;
+    uint32_t k0 = L.k0, k1 = L.k1;
+
+    // regen_reference: a lane left idle takes its next strided ray,
+    // nxtw * L + lane, from the ray tables; one whose next ray is in the
+    // last wave's pad is out of work for good and parks nxtw at n_waves.
+    const long long ray = (long long)L.nxtw * c.n_lanes + i;
+    const bool can = L.nxtw < c.n_waves;
+    const bool acquire = as_acquires(c, L, f.keep, i);
+    if (acquire) {
+        const float* rays = (const float*)in.p[18];
+        const uint32_t* keys = (const uint32_t*)in.p[19];
+        const size_t at = (size_t)ray, wc = (size_t)c.w_cells;
+#pragma unroll
+        for (int k = 0; k < 6; ++k) o[k] = rays[k * wc + at];
+        o[6] = 1.0f; o[7] = 1.0f; o[8] = 1.0f;
+        wcur = L.nxtw;
+        nxtw = L.nxtw + 1;
+        dep = 0;
+        k0 = keys[at];
+        k1 = keys[wc + at];
+    } else if (!f.keep && can) {
+        nxtw = c.n_waves;
+    }
+
+    const size_t n = (size_t)c.n_lanes;
+    float* fo = (float*)out.p[0];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) fo[k * n + i] = o[k];
+    fo[9 * n + i] = cr;
+    fo[10 * n + i] = cg;
+    fo[11 * n + i] = cb;
+    int* io = (int*)out.p[1];
+    io[i] = nxtw;
+    io[n + i] = wcur;
+    io[2 * n + i] = dep;
+    io[3 * n + i] = (int)k0;
+    io[4 * n + i] = (int)k1;
+    bool* bo = (bool*)out.p[2];
+    bo[i] = f.keep || acquire;
+    // what the pool's drain test reads: the lane was tracing, or had
+    // waves left, before the regen
+    bo[n + i] = f.keep || can;
+    ((long long*)out.p[3])[i] =
+        f.miss ? (long long)L.wcur * c.n_lanes + i : (long long)c.w_cells + i;
 }
 
 __global__ void __launch_bounds__(AS_THREADS)
@@ -277,8 +345,8 @@ ad_shade_grad_kernel(const AdShadeConfig c, const AsIn in, const AsGin gin,
     AsLane L;
     as_load(c, in, table, i, L);
 #define LDG(k) (((const float*)gin.p[k])[i])
-    const float gox2 = LDG(0), goy2 = LDG(1), goz2 = LDG(2);
-    const float gdx2 = LDG(3), gdy2 = LDG(4), gdz2 = LDG(5);
+    float gox2 = LDG(0), goy2 = LDG(1), goz2 = LDG(2);
+    float gdx2 = LDG(3), gdy2 = LDG(4), gdz2 = LDG(5);
     float gax1 = LDG(6), gay1 = LDG(7), gaz1 = LDG(8);
 #undef LDG
     const float* gdep = (const float*)gin.p[9];
@@ -286,6 +354,14 @@ ad_shade_grad_kernel(const AdShadeConfig c, const AsIn in, const AsGin gin,
                 gcb = gdep[2 * c.n_lanes + i];
     AsFwd f;
     as_forward(c, in, i, L, f);
+
+    // regen's selects: an acquiring lane's nine planes were overwritten by
+    // its new ray, so the shade's outputs there get no gradient.
+    if (as_acquires(c, L, f.keep, i)) {
+        gox2 = 0.0f; goy2 = 0.0f; goz2 = 0.0f;
+        gdx2 = 0.0f; gdy2 = 0.0f; gdz2 = 0.0f;
+        gax1 = 0.0f; gay1 = 0.0f; gaz1 = 0.0f;
+    }
 
     // Russian roulette: the boost is a constant factor.
     if (c.rr_terminate) {
@@ -404,13 +480,13 @@ ad_shade_grad_kernel(const AdShadeConfig c, const AsIn in, const AsGin gin,
     } else {
         gdx = gdx + gux; gdy = gdy + guy; gdz = gdz + guz;
     }
-#define STG(k, v) (((float*)gout.p[k])[i] = (v))
+#define STG(k, v) (((float*)gout.p[0])[(k) * (size_t)c.n_lanes + i] = (v))
     STG(0, gox); STG(1, goy); STG(2, goz);
     STG(3, gdx); STG(4, gdy); STG(5, gdz);
     STG(6, gax); STG(7, gay); STG(8, gaz);
     STG(9, gt);
 #undef STG
-    float* row = (float*)gout.p[10] + (size_t)i * AS_TABLE_COLS;
+    float* row = (float*)gout.p[1] + (size_t)i * AS_TABLE_COLS;
     row[0] = gcx; row[1] = gcy; row[2] = gcz; row[3] = gr; row[4] = 0.0f;
     row[5] = galr; row[6] = galg; row[7] = galb; row[8] = gfz; row[9] = gio;
 }
@@ -418,24 +494,24 @@ ad_shade_grad_kernel(const AdShadeConfig c, const AsIn in, const AsGin gin,
 // ---- C entries ---------------------------------------------------------
 
 static bool as_config_ok(const AdShadeConfig& c, const void* const* in) {
-    return c.n_lanes >= 1 && c.n_spheres >= 1 && c.w_cells >= 0
-           && (!c.stratified || (in[17] && in[18] && in[19]));
+    for (int k = 0; k < AS_N_IN; ++k)
+        if (!in[k]) return false;
+    return c.n_lanes >= 1 && c.n_spheres >= 1 && c.n_waves >= 1
+           && (long long)c.n_waves * c.n_lanes == c.w_cells
+           && c.n_rays >= 1 && c.n_rays <= c.w_cells;
 }
 
 // C entries. `cfg`, `in`, `out`, `gin` and `gout` are HOST pointers: the
 // config struct and arrays of device pointers (AS_N_IN, AS_N_OUT,
-// AS_N_GIN, AS_N_GOUT of them, in the orders above; the stratified
-// vectors may be null when cfg.stratified is 0, and `wcur` when the
-// adjoint is launched). `table` is the (S, 10) float32 table on the
-// device. Launches on `stream`, does not synchronise, returns the
-// launch's error or cudaGetLastError() (cudaErrorInvalidValue for a
-// configuration the kernels do not take).
+// AS_N_GIN, AS_N_GOUT of them, in the orders above). `table` is the
+// (S, 10) float32 table on the device. Launches on `stream`, does not
+// synchronise, returns the launch's error or cudaGetLastError()
+// (cudaErrorInvalidValue for a configuration the kernels do not take).
 extern "C" int rtw_ad_shade(const void* cfg_p, const void* const* in_p,
                             void* const* out_p, const void* table,
                             void* stream) {
     const AdShadeConfig c = *(const AdShadeConfig*)cfg_p;
-    if (!as_config_ok(c, in_p) || !in_p[14])
-        return (int)cudaErrorInvalidValue;
+    if (!as_config_ok(c, in_p)) return (int)cudaErrorInvalidValue;
     AsIn in = {};
     AsOut out = {};
     for (int k = 0; k < AS_N_IN; ++k) in.p[k] = in_p[k];

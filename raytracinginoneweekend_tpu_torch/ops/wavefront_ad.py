@@ -19,7 +19,10 @@ iteration, and the whole loop is differentiable.
     of the acquiring lanes every iteration; each ray's values are the same
     elementwise function of its (pixel, sample), so the results are the
     same, and an iteration here saves the hundreds of small launches that
-    the camera rays' threefry hashing takes.)
+    the camera rays' threefry hashing takes.) The JAX package regenerates
+    at the top of an iteration; here the shade op regenerates at its end,
+    and one regen runs before the first iteration: the same sequence of
+    states, one regen earlier.
   * Radiance deposit: a WAVE-INDEXED LEDGER. Ray (w, lane) has the unique
     cell w*L + lane; only a miss carries radiance (absorb and depth-out
     are black), so a ray deposits at most once, at the iteration it dies,
@@ -33,12 +36,12 @@ iteration, and the whole loop is differentiable.
     ``torch.autograd.Function``. The rest of the bounce -- the winner's
     parameters from the differentiable (S, 10) table, the scatter and sky
     math of the planar engine (scatter_planar_ad, shade_geometry_planar),
-    the deposit's values and cells -- is ONE op,
-    ops/cuda_ad_shade.ad_shade: a kernel forward and its adjoint kernel
-    backward on the card (csrc/ad_shade.cu), the plain version under
-    autograd on the CPU; on the card its table gradient sums each lane's
-    row by sphere with ``index_add_``, as ``index_select``'s backward
-    does. The per-pixel
+    the deposit's values and cells -- and the regen of the lanes it left
+    idle are ONE op, ops/cuda_ad_shade.ad_shade: a kernel forward and its
+    adjoint kernel backward on the card (csrc/ad_shade.cu), the plain
+    version under autograd on the CPU; on the card its table gradient sums
+    each lane's row by sphere with ``index_add_``, as ``index_select``'s
+    backward does. The per-pixel
     mean reduces in the same sample order, so pixels are BIT-invariant to
     pool_size and agree with render_pixels_planar to float32
     reassociation.
@@ -49,7 +52,9 @@ iteration, and the whole loop is differentiable.
     replayed when backward recomputes the epoch; ``_HitTape``), so the
     backward never launches the kernel. The JAX package skips drained
     epochs with ``lax.cond``; here the loop is eager and stops once the
-    pool has drained, with one device->host read per epoch.
+    pool has drained, with one device->host read per epoch. Both test the
+    state before its regen (the op's ``busy``): a lane whose next ray is
+    in the last wave's pad counts until the regen parks it.
   * A tuned flat budget (``iters``) runs exactly that many iterations with
     no host read: ``remat="none"`` keeps every intermediate,
     ``remat="step"`` checkpoints each iteration, ``"auto"`` picks by the
@@ -115,78 +120,36 @@ class _HitTape:
 
 def _ray_tables(pid_flat, sid_flat, cam: Camera, base_words, *,
                 width: int, height: int, camera_mode: str,
-                options: TraceOptions, spp: int):
+                options: TraceOptions, spp: int) -> cuda_ad_shade.RayTables:
     """Every ray's camera ray and key words (and, under stratified
-    sampling, its first-bounce scatter vector), as flat (W*L,) arrays in
-    the wave-major ray order: what ``_regen`` reads a lane's next ray
-    from."""
+    sampling, its first-bounce scatter vector), in the wave-major ray
+    order: what a lane that acquires a ray reads it from."""
     pid, sid = pid_flat[None, :], sid_flat[None, :]
     planes = planar.camera_rays(cam, pid, sid, base_words, width, height,
                                 camera_mode, sampling=options.sampling,
                                 spp=spp)
+    floats = list(planes[:6])
     if options.sampling == "stratified":
-        planes = planes + planar.strat0_scatter_planes(
+        floats += planar.strat0_scatter_planes(
             planes[6], planes[7], pid, sid, base_words, spp,
             options.scatter_sample == "unit")
-    return tuple(p.reshape(-1) for p in planes)
+    return cuda_ad_shade.RayTables(torch.cat(floats), torch.cat(planes[6:8]))
 
 
-def _regen(state, rays, *, n: int, w: int):
-    """Dead lanes acquire their next strided ray: its camera ray and key
-    words from the ``_ray_tables`` arrays ``rays``. Returns (state,
-    strat0): strat0 is None, or the acquired rays' first-bounce scatter
-    vectors (valid on the acquiring lanes, which are exactly the lanes
-    that shade at depth 0 this iteration)."""
-    (nxtw, wcur, active, ox, oy, oz, dx, dy, dz, ax, ay, az, depth,
-     k0, k1) = state
-    lanes = nxtw.numel()
-    lane = torch.arange(lanes, dtype=torch.int32,
-                        device=nxtw.device).reshape(nxtw.shape)
+def _shade_deposit(table, rays, spec: cuda_ad_shade.Spec, state, khit,
+                   ledger):
+    """One pool iteration downstream of the kernel: the bounce, the ledger
+    deposit on a miss and the regen, -> (state, ledger, busy).
 
-    idle = ~active
-    can = nxtw < w
-    # Only the LAST wave is padded; a lane whose next ray id falls in the
-    # pad is out of work for good (later waves' ids only grow).
-    ray = nxtw * lanes + lane
-    in_range = ray < n
-    acquire = idle & can & in_range
-    nxtw = torch.where(idle & can & ~in_range, torch.full_like(nxtw, w),
-                       nxtw)
-
-    at = torch.clamp(ray, 0, n - 1).reshape(-1).to(torch.int64)
-    nox, noy, noz, ndx, ndy, ndz, rk0, rk1, *strat0 = (
-        r[at].reshape(nxtw.shape) for r in rays)
-
-    one = torch.ones_like(ax)
-    state = (torch.where(acquire, nxtw + 1, nxtw),
-             torch.where(acquire, nxtw, wcur), active | acquire,
-             torch.where(acquire, nox, ox), torch.where(acquire, noy, oy),
-             torch.where(acquire, noz, oz), torch.where(acquire, ndx, dx),
-             torch.where(acquire, ndy, dy), torch.where(acquire, ndz, dz),
-             torch.where(acquire, one, ax), torch.where(acquire, one, ay),
-             torch.where(acquire, one, az),
-             torch.where(acquire, torch.zeros_like(depth), depth),
-             torch.where(acquire, rk0, k0), torch.where(acquire, rk1, k1))
-    return state, (tuple(strat0) or None)
-
-
-def _shade_deposit(table, options: TraceOptions, max_depth: int, state,
-                   khit, ledger, strat0=None):
-    """One bounce downstream of the kernel + ledger deposit on a miss.
-
-    table: ``_material_table(scene)``; ledger: (3, W*L + L) f32, the wave
-    cells then one dump cell per lane. strat0: the first-bounce scatter
-    vectors of this iteration's ``_regen`` (valid on the depth == 0
-    lanes), substituted there under sampling="stratified". The bounce is
-    one op (ops/cuda_ad_shade.ad_shade: one kernel forward, one backward
-    on the card); the ledger write stays out of place, as the checkpoint
-    needs.
+    table: ``_material_table(scene)``; rays: the ``_ray_tables``; ledger:
+    (3, W*L + L) f32, the wave cells then one dump cell per lane. The
+    bounce and the regen are one op (ops/cuda_ad_shade.ad_shade: one
+    kernel forward, one backward on the card); the ledger write stays out
+    of place, as the checkpoint needs.
     """
-    lanes = state[3].numel()
-    state, deposit, cell = cuda_ad_shade.ad_shade(
-        table, state, khit, strat0,
-        cuda_ad_shade.Spec(max_depth, options, ledger.shape[1] - lanes))
-    return state, torch.index_copy(ledger, 1, cell, deposit)
+    state, deposit, cell, busy = cuda_ad_shade.ad_shade(
+        table, state, khit, rays, spec)
+    return state, torch.index_copy(ledger, 1, cell, deposit), busy
 
 
 def trace_wavefront_ad(scene: Scene, cam: Camera, pid_waves, sid_waves,
@@ -235,26 +198,27 @@ def trace_wavefront_ad(scene: Scene, cam: Camera, pid_waves, sid_waves,
     rays_all = _ray_tables(pid_waves.reshape(-1), sid_waves.reshape(-1), cam,
                            base_words, width=width, height=height,
                            camera_mode=camera_mode, options=options, spp=spp)
-    shade = functools.partial(_shade_deposit, table, options, max_depth)
+    shade = functools.partial(
+        _shade_deposit, table, rays_all,
+        cuda_ad_shade.Spec(max_depth, options, w * lanes, n))
 
     def run(state, ledger, n_iters: int, tape):
-        """``n_iters`` pool iterations: regen -> closest hit -> shade. The
-        backward runs a checkpointed call again (inside the autograd
-        engine's graph task), and is spanned apart."""
+        """``n_iters`` pool iterations: closest hit -> shade, deposit and
+        regen -> (state, ledger, busy). The backward runs a checkpointed
+        call again (inside the autograd engine's graph task), and is
+        spanned apart."""
         if tape is not None:
             tape.pos = 0
         recompute = torch._C._current_graph_task_id() != -1
         with span("rtw.ad.recompute" if recompute else "rtw.ad.epoch"):
             for _ in range(n_iters):
-                state, strat0 = _regen(state, rays_all, n=n, w=w)
                 rays = state[3:9]
                 khit = (tape.closest_hit(rays, geom, options.t_min)
                         if tape is not None
                         else closest_hit_planar(rays, geom, options.t_min))
                 with span("rtw.ad.shade"):
-                    state, ledger = shade(state, khit, ledger,
-                                          strat0=strat0)
-        return state, ledger
+                    state, ledger, busy = shade(state, khit, ledger)
+        return state, ledger, busy
 
     def checkpointed(state, ledger, n_iters: int):
         fn = functools.partial(run, n_iters=n_iters, tape=_HitTape())
@@ -270,19 +234,22 @@ def trace_wavefront_ad(scene: Scene, cam: Camera, pid_waves, sid_waves,
              zero, zero, zero, izero, izero, izero)
     ledger = torch.zeros((3, w * lanes + lanes), dtype=torch.float32,
                          device=device)
+    # The first iteration's regen; every later one is the shade op's.
+    state, busy = cuda_ad_shade.regen_reference(state, rays_all, n=n, w=w)
 
-    def work_left(state) -> bool:
-        """Any lane tracing, or any lane with unacquired rays (lanes out
-        of rays park nxtw at W)? One device->host read."""
-        return bool((state[2].any() | (state[0] < w).any()).item())
+    def work_left(busy) -> bool:
+        """Before the latest regen, was any lane tracing, or any lane left
+        with unacquired rays (lanes out of rays park nxtw at W)? One
+        device->host read."""
+        return bool(busy.any().item())
 
     if iters is None:
         n_epochs = -(-(w * max_depth) // epoch_len)
         n_active = 0
         for _ in range(n_epochs):
-            if not work_left(state):
+            if not work_left(busy):
                 break
-            state, ledger = checkpointed(state, ledger, epoch_len)
+            state, ledger, busy = checkpointed(state, ledger, epoch_len)
             n_active += epoch_len
     else:
         if remat == "auto":
@@ -290,15 +257,15 @@ def trace_wavefront_ad(scene: Scene, cam: Camera, pid_waves, sid_waves,
                      <= _NOREMAT_CAP_BYTES else "step")
         for _ in range(iters):
             if remat == "none":
-                state, ledger = run(state, ledger, 1, None)
+                state, ledger, busy = run(state, ledger, 1, None)
             else:
-                state, ledger = checkpointed(state, ledger, 1)
+                state, ledger, busy = checkpointed(state, ledger, 1)
         n_active = iters
 
     out = tuple(ledger[c, :w * lanes].reshape(w, r_rows, LANES)
                 for c in range(3))
     if return_done:
-        return out, (not work_left(state), n_active)
+        return out, (not work_left(busy), n_active)
     return out
 
 

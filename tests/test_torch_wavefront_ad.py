@@ -175,6 +175,47 @@ def test_done_and_budget_equal_the_jax_values():
     assert float(short.sum()) < float(full.sum())
 
 
+@pytest.mark.parametrize("epoch_len", [1, 2])
+def test_pad_lane_drain_at_an_epoch_boundary_equals_the_jax_values(
+        epoch_len):
+    """1030 rays on a pool of 1024 lanes: the second wave holds 6 real
+    rays, and every other lane's next ray is pad. With this key the last
+    ray to finish is such a lane's first, at an epoch boundary: the state
+    before its regen still shows the lane's unacquired pad ray, so the
+    JAX package works one epoch more, and the port's shade op, which
+    parks the lane in its own regen, must count it too (its ``busy``).
+    The epoch count, ``done`` on each side of the budget, and the pixels
+    against the JAX pool."""
+    ids = _ids(206)
+    kw = dict(width=W, height=H, spp=5, max_depth=DEPTH, camera_mode="cuda",
+              pool_size=1024)
+    pid, sid, rows, n = jad._wave_layout(jnp.asarray(ids), 5, 1024)
+    assert pid.shape[0] == 2 and n == 1030
+    jargs = (jscene.simple_scene_cuda(), jcamera.reference_cuda_camera(W, H))
+    pargs = (pscene.simple_scene_cuda("cpu"),
+             pcamera.reference_cuda_camera(W, H, "cpu"),
+             torch.from_numpy(ids), ptf.key_words(3))
+    jled, (jdone, jbudget) = jad.trace_wavefront_ad(
+        *jargs, pid, sid, jax.random.key(3), n=n, rows=rows,
+        epoch_len=epoch_len, return_done=True, options=jconfig.DEFAULT,
+        **{k: v for k, v in kw.items() if k != "pool_size"})
+    budget = pad.wavefront_ad_budget(*pargs, options=pconfig.DEFAULT,
+                                     epoch_len=epoch_len, **kw)
+    assert bool(jdone) and budget == int(jbudget)
+    for iters in (budget - epoch_len, budget):
+        want = bool(jad.wavefront_ad_done(
+            *jargs, jnp.asarray(ids), jax.random.key(3), iters=iters,
+            options=jconfig.DEFAULT, **kw))
+        got = pad.wavefront_ad_done(*pargs, iters=iters,
+                                    options=pconfig.DEFAULT, **kw)
+        assert got is want is (iters == budget), iters
+    want = np.stack([np.asarray(c).reshape(-1)[:n].reshape(206, 5).mean(1)
+                     for c in jled], -1)
+    got = pad.render_pixels_wavefront_ad(*pargs, options=pconfig.DEFAULT,
+                                         epoch_len=epoch_len, **kw).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-5)
+
+
 def _grads(rr: bool):
     g = np.random.default_rng(4)
     ids = g.permutation(W * H)[:128].astype(np.int32)
